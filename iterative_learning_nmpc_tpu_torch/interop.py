@@ -1,0 +1,55 @@
+"""numpy -> port converters, so the port and the JAX package compute from
+the same numbers. Every input is read through ``np.asarray``: pass numpy
+arrays or any array object numpy can read (this module imports no JAX).
+
+The system's "weights" are the robot spec, the cost weights, the OCP
+parameters and the warm-start state (X, U, lam_eq, lam_ineq).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .ocp.problem import OCPParams, Weights
+from .robots.spec import _TENSOR_FIELDS, RobotSpec
+
+
+def _t(x, device):
+    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
+def spec_from_numpy(src, device=None) -> RobotSpec:
+    """RobotSpec from an object with the spec's fields (metadata + arrays)."""
+    meta = {f: getattr(src, f) for f in
+            ("name", "nv", "nu", "parent", "jtype", "foot_body",
+             "feet_frame_names")}
+    meta = {k: (tuple(v) if isinstance(v, (list, tuple)) else v)
+            for k, v in meta.items()}
+    return RobotSpec(**meta, **{f: _t(getattr(src, f), device)
+                                for f in _TENSOR_FIELDS})
+
+
+def weights_from_numpy(src, device=None) -> Weights:
+    return Weights(**{f.name: _t(getattr(src, f.name), device)
+                      for f in dataclasses.fields(Weights)})
+
+
+def params_from_numpy(src, device=None) -> OCPParams:
+    """OCPParams from an object with the OCPParams fields. A single problem
+    (x0 of shape (36,)) becomes a batch of one."""
+    single = np.asarray(src.x0).ndim == 1
+    return OCPParams(**{
+        f.name: (_t(getattr(src, f.name), device)[None] if single
+                 else _t(getattr(src, f.name), device))
+        for f in dataclasses.fields(OCPParams)})
+
+
+def warm_start_from_numpy(X, U, lam_eq, lam_ineq, device=None):
+    """(X, U, lam_eq, lam_ineq) tensors; unbatched arrays gain a batch dim."""
+    out = []
+    for a, nd in ((X, 2), (U, 2), (lam_eq, 2), (lam_ineq, 2)):
+        t = _t(a, device)
+        out.append(t[None] if t.dim() == nd else t)
+    return tuple(out)

@@ -1,0 +1,87 @@
+"""The port's CUDA kernels against their plain PyTorch twins on the card.
+
+Marked ``cuda``: skipped where no CUDA device is present. This file imports
+no JAX, so it also runs on a GPU machine without JAX:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_kernels.py
+
+Inputs: the golden converged flagship trajectory (Go2 trot, N=25) for
+B=3 problems, with the initial state moved by 1 cm-scale noise (lingram:
+gradient blocks far from zero) or the interior states by 5e-4 (riccati: a
+well-conditioned fp32 step, as in the steady RTI regime).
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from iterative_learning_nmpc_tpu_torch import flagship as F
+from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore, dyncore_plain
+from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram, lingram_plain
+from iterative_learning_nmpc_tpu_torch.ops.riccati import (
+    riccati_rollout, riccati_rollout_plain)
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                      "go2_trot_n25_golden.npz")
+B = 3
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    solver, _, _, params = F.flagship(device=dev)
+    g = np.load(GOLDEN)
+    X = torch.as_tensor(g["X_conv"], device=dev)[None]
+    U = torch.as_tensor(g["U_conv"], device=dev)[None]
+    params = params.replace(lam_ineq=torch.as_tensor(g["lam_ineq_conv"], device=dev)[None])
+    return solver, X, U, params
+
+
+def _max_rel(a, b):
+    return float(((a - b).abs() / (1.0 + b.abs())).max())
+
+
+@pytest.mark.cuda
+def test_dyncore_kernel_matches_plain(card):
+    solver, X, U, p = card
+    Xb, Ub, _ = F.perturbed_batch(X, U, p, B, seed=1)
+    M = B * solver.N
+    Xm = Xb[:, :-1].reshape(M, 36).contiguous()
+    Am = Ub[..., :18].reshape(M, 18).contiguous()
+    Fm = Ub[..., 18:].reshape(M, 12).contiguous()
+    n0 = dyncore.launches
+    out_k, out_p = dyncore(solver.spec, Xm, Am, Fm), dyncore_plain(solver.spec, Xm, Am, Fm)
+    assert dyncore.launches == n0 + 1
+    # fp32 reassociation: 1e-5 of the output scale
+    assert float((out_k - out_p).abs().max()) <= 1e-5 * max(1.0, float(out_p.abs().max()))
+
+
+@pytest.mark.cuda
+def test_lingram_kernel_matches_plain(card):
+    solver, X, U, p = card
+    Xb, Ub, pb = F.perturbed_batch(X, U, p, B, seed=2)
+    for inc in (True, False):
+        for a, b in zip(lingram(solver.spec, solver.weights, Xb, Ub, pb, inc),
+                        lingram_plain(solver.spec, solver.weights, Xb, Ub, pb, inc)):
+            # tests/test_fast_linearize.py's per-block Gram bound
+            assert float((a - b).abs().max()) <= 3e-4 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_riccati_kernel_matches_plain(card):
+    solver, X, U, p = card
+    gen = torch.Generator().manual_seed(3)
+    Xb = X.repeat(B, 1, 1)
+    Xb[:, 1:] += 5e-4 * torch.randn(Xb[:, 1:].shape, generator=gen).to(X.device)
+    Ub = U.repeat(B, 1, 1)
+    pb = p.map(lambda t: t.expand((B,) + t.shape[1:]).contiguous())
+    blocks = lingram(solver.spec, solver.weights, Xb, Ub, pb)
+    args = (solver.spec, solver.weights, solver.dt_nodes, float(solver.opt.lm_reg),
+            float(solver.cost.reg_eps_e), *blocks, solver._defects(Xb, Ub, pb),
+            pb.x0 - Xb[:, 0], Xb[:, -1], pb.peak[:, :, -1], pb.base_ref_e,
+            pb.joint_ref, pb.step_height)
+    for a, b in zip(riccati_rollout(*args), riccati_rollout_plain(*args)):
+        assert _max_rel(a, b) <= 1e-3       # the bench's rel |dU| gate
