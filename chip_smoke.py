@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the batched warm-started RTI solve of the Go2
-trot NMPC (N=25 nodes, 36-dim state, 30-dim input), through its public
-entry points, and checks every CUDA kernel of that path against its plain
-PyTorch twin. Phases, one line each:
+Drives the port's two paths through their public entry points and checks
+every CUDA kernel of them against its plain PyTorch twin: the batched
+warm-started RTI solve of the Go2 trot NMPC (N=25 nodes, 36-dim state,
+30-dim input), and the closed-loop controller (``LocomotionMPC``, one
+problem per replan) driving the device plant. Phases, one line each:
 
   1. the card's name and power limit (nvidia-smi),
   2. build the kernels from ``iterative_learning_nmpc_tpu_torch/csrc``,
@@ -17,9 +18,20 @@ PyTorch twin. Phases, one line each:
      kernels' launch counters set to 0 before it and read after it,
   5. each kernel against its plain twin at the chain's shapes (lingram at
      its first step, the others at its end state), timed with CUDA events,
-  6. one RTI step of the kernel path against the plain path on the card.
+  6. one RTI step of the kernel path against the plain path on the card,
+  7. dynjac against its plain twin at the controller's shape (M=25) and at
+     M=512*25, and one B=1 RTI step through the dynjac route and through
+     the lingram route, timed with CUDA events,
+  8. the closed loop: LocomotionMPC (Go2 trot, sync mode, phase-aligned
+     boot) driving the device plant for 2.0 s at 1 kHz toward 0.3 m/s, with
+     the launch counters set to 0 before it and read after it: base
+     height, attitude, forward speed and replan latency,
+  9. the controller's cold boot and first plan against the JAX-on-CPU
+     golden (tests/data/go2_trot_closed_loop_golden.npz).
 
-It then prints one JSON line with the kernels' results and, last, the
+It then prints one JSON line with the kernels' results (each with its
+bound: the larger of its operations over the card's fp32 rate and its
+bytes over the memory rate, counted on this run's inputs) and, last, the
 result line. Any failed check exits non-zero without that line; there is
 no CPU fallback.
 """
@@ -32,6 +44,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH, CHAIN_STEPS, SEED = 512, 20, 0
 REL_GATE = 1.0e-3          # the bench's rel |dU| / (1 + |U|) gate
+LOOP_S, V_DES, BUDGET_MS = 2.0, 0.3, 40.0
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores (every
+# kernel here is fp32 scalar code), and HBM3
+PEAK_FLOPS, PEAK_BYTES = 67.0e12, 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -57,6 +73,112 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def tensors_of(obj, out=None):
+    """Every tensor in a nest of tuples, lists, dicts and dataclasses."""
+    import dataclasses
+
+    import torch
+
+    out = [] if out is None else out
+    if isinstance(obj, torch.Tensor):
+        out.append(obj)
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            tensors_of(o, out)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            tensors_of(o, out)
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            tensors_of(getattr(obj, f.name), out)
+    return out
+
+
+def op_counter():
+    """A dispatch mode counting the floating-point operations of every aten
+    op it sees: 2 n k m for a product, n^3 / 3 for a Cholesky factor, n^2 k
+    for a triangular solve, the largest operand's size for an elementwise op
+    or a reduction, and nothing for layout and copies."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    import torch
+
+    free = {"view", "_unsafe_view", "reshape", "expand", "permute", "transpose",
+            "t", "select", "slice", "unsqueeze", "squeeze", "cat", "stack",
+            "clone", "copy", "_to_copy", "to", "contiguous", "detach", "alias",
+            "index", "index_select", "gather", "empty", "empty_strided", "zeros",
+            "ones", "full", "new_zeros", "new_empty", "new_full", "new_ones",
+            "zeros_like", "empty_like", "ones_like", "full_like", "lift_fresh",
+            "arange", "linspace", "eye", "diag_embed", "diagonal", "as_strided",
+            "split", "split_with_sizes", "unbind", "repeat", "repeat_interleave",
+            "index_put", "fill", "scalar_tensor", "_local_scalar_dense",
+            "expand_as", "flip", "narrow", "unfold", "diag", "tril", "triu",
+            "select_scatter", "slice_scatter", "masked_fill", "where",
+            "_unsafe_index", "nonzero", "is_nonzero", "item", "set_", "zero"}
+
+    class OpCount(TorchDispatchMode):
+        flops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            name = func.overloadpacket.__name__.rstrip("_")
+            if name in ("mm", "bmm"):
+                self.flops += 2 * args[0].numel() * args[1].shape[-1]
+            elif name in ("addmm", "baddbmm"):
+                self.flops += 2 * args[1].numel() * args[2].shape[-1]
+            elif "cholesky_solve" in name or "triangular" in name:
+                b, a = args[0], args[1]
+                self.flops += (2 if "cholesky" in name else 1) * b.numel() * a.shape[-1]
+            elif "cholesky" in name:
+                n = args[0].shape[-1]
+                self.flops += args[0].numel() // (n * n) * n ** 3 // 3
+            elif name not in free:
+                ts = [t for t in tree_leaves((args, kwargs, out))
+                      if isinstance(t, torch.Tensor)]
+                self.flops += max((t.numel() for t in ts), default=0)
+            return out
+
+    return OpCount()
+
+
+def bound(plain_fn, args, out):
+    """(bound_ms, bound_by, flops, bytes) of the function at these inputs:
+    its operations counted on one call of the plain twin, its bytes each
+    distinct input tensor read once and each output written once."""
+    with op_counter() as oc:
+        plain_fn(*args)
+    seen, nbytes = set(), 0
+    for t in tensors_of(args) + tensors_of(out):
+        if t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            nbytes += t.numel() * t.element_size()
+    t_ops = oc.flops / PEAK_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            oc.flops, nbytes)
+
+
+def standing_state(spec):
+    """The flagship's standing pose: q_home with the feet on the ground."""
+    import numpy as np
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch.models import dynamics as dyn
+
+    cpu = spec.to("cpu")
+    q0 = cpu.q_home.numpy().astype(np.float32).copy()
+    p0 = dyn.foot_positions(cpu, torch.as_tensor(q0)).numpy()
+    q0[2] += -p0[0, 2] + float(cpu.foot_radius)
+    return q0.astype(np.float64), np.zeros(18)
+
+
+class PlantData:
+    """What LocomotionMPC.compute_torques_dof reads: time, qpos, qvel in
+    MuJoCo layout."""
+    time, qpos, qvel = 0.0, None, None
+
+
 def main() -> None:
     import torch
 
@@ -67,14 +189,24 @@ def main() -> None:
     import numpy as np
 
     from iterative_learning_nmpc_tpu_torch import flagship as F
-    from iterative_learning_nmpc_tpu_torch.interop import warm_start_from_numpy
+    from iterative_learning_nmpc_tpu_torch.interop import (
+        sim_state_from_numpy, warm_start_from_numpy)
+    from iterative_learning_nmpc_tpu_torch.models import transforms_np as tnp
+    from iterative_learning_nmpc_tpu_torch.mpc.controller import LocomotionMPC
     from iterative_learning_nmpc_tpu_torch.ops import _build
     from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore, dyncore_plain
+    from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain
     from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram, lingram_plain
     from iterative_learning_nmpc_tpu_torch.ops.riccati import (
         riccati_rollout, riccati_rollout_plain)
-    from iterative_learning_nmpc_tpu_torch.solver.linearize import dyncore_inputs
+    from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec
+    from iterative_learning_nmpc_tpu_torch.sim import device_sim
+    from iterative_learning_nmpc_tpu_torch.solver.linearize import (
+        cost_dual, dyncore_inputs, lingram_structured)
     from iterative_learning_nmpc_tpu_torch.solver.sqp import TrajOptSolver
+
+    t_start = time.perf_counter()
+    kernels = (dyncore, lingram, riccati_rollout, dynjac)
 
     dev = torch.device("cuda", 0)
 
@@ -122,7 +254,7 @@ def main() -> None:
     lam_eq = torch.zeros_like(pb.lam_eq)
     lam_ineq = conv.lam_ineq.expand_as(pb.lam_ineq).contiguous()
     F.rti_chain(solver, Xb, Ub, lam_eq, lam_ineq, pb, 1)        # warm-up
-    for k in (dyncore, lingram, riccati_rollout):
+    for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -149,14 +281,18 @@ def main() -> None:
     spec, w = solver.spec, solver.weights
     results = []
 
-    def record(name, src, replaces, err, ok, bound, ms, plain_ms):
-        print(f"[kernel] {name}: max_abs_err {err:.3e} ({bound}), "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
+    def record(name, src, replaces, err, ok, tol, ms, plain_ms, plain_fn, args, out,
+               n_launch=None):
+        b_ms, b_by, flops, nbytes = bound(plain_fn, args, out)
+        print(f"[kernel] {name}: max_abs_err {err:.3e} ({tol}), "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms by "
+              f"{b_by} ({flops:.4e} flop, {nbytes} B)", flush=True)
         results.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=launches[name], max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms))
+                            launches=launches[name] if n_launch is None else n_launch,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None))
         if not ok:
-            fail(f"{name} disagrees with its plain twin ({bound})")
+            fail(f"{name} disagrees with its plain twin ({tol})")
 
     N = solver.N
     inc = solver.opt.torque_limit_in_qp
@@ -178,7 +314,8 @@ def main() -> None:
            + ", ".join(f"{n} {e:.2e}/{b:.2e}" for n, e, b in
                        zip(("Q", "R", "M", "qx", "ru"), errs, bounds)),
            cuda_time_ms(lambda: lingram(spec, w, Xb, Ub, ps, inc), 20),
-           cuda_time_ms(lambda: lingram_plain(spec, w, Xb, Ub, ps, inc), 3))
+           cuda_time_ms(lambda: lingram_plain(spec, w, Xb, Ub, ps, inc), 3),
+           lingram_plain, (spec, w, Xb, Ub, ps, inc), blocks_k)
     blocks_k = lingram(spec, w, Xe, Ue, pe, inc)
 
     defects = solver._defects(Xe, Ue, pe)
@@ -194,7 +331,8 @@ def main() -> None:
            max(float((dU_k - dU_p).abs().max()), float((dX_k - dX_p).abs().max())),
            r_ric <= REL_GATE, f"rel |d(dU, dX)| / (1 + |plain|) {r_ric:.2e} <= {REL_GATE}",
            cuda_time_ms(lambda: riccati_rollout(*ric_args), 20),
-           cuda_time_ms(lambda: riccati_rollout_plain(*ric_args), 3))
+           cuda_time_ms(lambda: riccati_rollout_plain(*ric_args), 3),
+           riccati_rollout_plain, ric_args, (dX_k, dU_k))
 
     # dyncore on the line-search candidates (alphas 1, 0.25): M = 2 * 512 * 26
     alphas = torch.tensor(solver.opt.ls_alphas_steady, device=dev)
@@ -211,11 +349,13 @@ def main() -> None:
            "iterative_learning_nmpc_tpu/ops/dynjac_kernel.py:599", err_dc,
            err_dc <= bound_dc, f"<= 1e-5 * max(1, |out|) = {bound_dc:.3e}, M={Xm.shape[0]}",
            cuda_time_ms(lambda: dyncore(spec, Xm, Am, Fm), 50),
-           cuda_time_ms(lambda: dyncore_plain(spec, Xm, Am, Fm), 5))
+           cuda_time_ms(lambda: dyncore_plain(spec, Xm, Am, Fm), 5),
+           dyncore_plain, (spec, Xm, Am, Fm), out_k)
 
     # ---- 6. one RTI step: kernel path vs plain path, both on the card ----
     class PlainSolver(TrajOptSolver):
         lingram = staticmethod(lingram_plain)
+        dynjac = staticmethod(dynjac_plain)
         riccati_rollout = staticmethod(riccati_rollout_plain)
         dyncore = staticmethod(dyncore_plain)
 
@@ -228,6 +368,137 @@ def main() -> None:
     if not r_step <= REL_GATE:
         fail(f"kernel path vs plain path rel|dU| {r_step:.2e}")
 
+    # ---- 7. dynjac against its plain twin; one B=1 RTI step by both routes ----
+    def dynjac_case(Xn, Un, pn):
+        M = Xn.shape[0] * (Xn.shape[1] - 1)
+        cnt = pn.cnt[:, :, :-1].transpose(1, 2).reshape(M, 4)
+        Fe = (cnt[..., None] * Un[..., 18:].reshape(M, 4, 3)).reshape(M, 12)
+        return (Xn[:, :-1].reshape(M, 36).contiguous(),
+                Un[..., :18].reshape(M, 18).contiguous(), Fe.contiguous())
+
+    # the JAX package's tests/test_dynjac_kernel.py bounds: values 1e-5 of
+    # their scale (as dyncore), the Jacobian 3e-5 of its largest entry
+    def dynjac_check(args):
+        (pk, Jk), (pp, Jp) = dynjac(spec, *args), dynjac_plain(spec, *args)
+        e_p, e_J = float((pk - pp).abs().max()), float((Jk - Jp).abs().max())
+        b_p = 1e-5 * max(1.0, float(pp.abs().max()))
+        b_J = 3e-5 * float(Jp.abs().max())
+        return (pk, Jk), e_p, e_J, b_p, b_J
+
+    pg = params.replace(lam_ineq=lig)
+    args25 = dynjac_case(Xg, Ug, pg)                            # B=1: M=25
+    args_big = dynjac_case(Xe, Ue, pe)                          # M=512*25
+    dj_out, e_p, e_J, b_p, b_J = dynjac_check(args25)
+    _, e_p2, e_J2, b_p2, b_J2 = dynjac_check(args_big)
+    ok_dj = e_p <= b_p and e_J <= b_J and e_p2 <= b_p2 and e_J2 <= b_J2
+    ms_big = cuda_time_ms(lambda: dynjac(spec, *args_big), 20)
+    plain_big = cuda_time_ms(lambda: dynjac_plain(spec, *args_big), 3)
+    print(f"[dynjac] M={args_big[0].shape[0]}: prim err {e_p2:.3e} (<= {b_p2:.3e}), "
+          f"J err {e_J2:.3e} (<= {b_J2:.3e}), {ms_big:.4f} ms vs plain "
+          f"{plain_big:.4f} ms ({card})", flush=True)
+
+    def b1_step(route):
+        blocks = route()
+        defects = solver._defects(Xg, Ug, pg)
+        dX, dU = riccati_rollout(
+            spec, w, solver.dt_nodes, float(solver.opt.lm_reg),
+            float(solver.cost.reg_eps_e), *blocks, defects, pg.x0 - Xg[:, 0],
+            Xg[:, -1], pg.peak[:, :, -1], pg.base_ref_e, pg.joint_ref,
+            pg.step_height)
+        a = alphas[:, None, None, None]
+        Xc = (Xg[None] + a * dX[None]).reshape(-1, N + 1, 36)
+        Uc = (Ug[None] + a * dU[None]).reshape(-1, N, 30)
+        return cost_dual(spec, w, Xc, Uc,
+                         pg.map(lambda t: t.repeat((nA,) + (1,) * (t.dim() - 1))))
+
+    ms_route_dj = cuda_time_ms(lambda: b1_step(lambda: lingram_structured(
+        spec, w, Xg, Ug, pg, inc, dynjac_fn=dynjac)), 20)
+    ms_route_lg = cuda_time_ms(lambda: b1_step(lambda: lingram(
+        spec, w, Xg, Ug, pg, inc)), 20)
+    print(f"[b1 step] one B=1 RTI step (linearize + riccati + merit of "
+          f"{nA} alphas): dynjac route {ms_route_dj:.4f} ms, lingram route "
+          f"{ms_route_lg:.4f} ms ({card})", flush=True)
+
+    # ---- 8. the closed loop on the card ----
+    spec_d = go2_spec(device=dev)
+    q0, v0 = standing_state(spec_d)
+    mpc = LocomotionMPC(spec_d, gait_name="trot", solve_async=False,
+                        phase_aligned_boot=True, device=dev)
+    mpc.set_command(np.array([V_DES, 0.0, 0.0]))
+    cp = device_sim.contact_params_for(spec_d, device=dev)
+    st = sim_state_from_numpy(q0, v0, device=dev)
+    data = PlantData()
+    steps = int(round(LOOP_S / mpc.sim_dt))
+    qs = np.zeros((steps, 18))
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        x = torch.cat([st.q, st.v]).cpu().numpy().astype(np.float64)
+        data.qpos, data.qvel = tnp.convert_to_mujoco(x[:18], x[18:])
+        data.time = i * mpc.sim_dt
+        mpc.compute_torques_dof(data)
+        tau = torch.as_tensor(mpc.torques_dof[-mpc.nu:], dtype=torch.float32, device=dev)
+        st = device_sim.step(spec_d, st, tau, cp, mpc.sim_dt)
+        qs[i] = x[:18]
+    torch.cuda.synchronize()
+    wall_loop = time.perf_counter() - t0
+    loop_launches = {k.__name__: k.launches for k in kernels}
+    qs = np.vstack([qs, st.q.cpu().numpy()[None]])              # + the final state
+    replans = np.asarray(mpc.timings["optimize"])
+    lat = replans[1:]
+    z, rp = qs[:, 2], np.degrees(np.abs(qs[:, 4:6]))
+    vx = (qs[-1, 0] - q0[0]) / LOOP_S
+    finite = bool(np.isfinite(qs).all())
+    print(f"[closed loop] Go2 trot, {LOOP_S} s at 1 kHz on the device plant, "
+          f"v_des {V_DES} m/s: {len(replans)} replans, boot offset "
+          f"{mpc.boot_offsets}, mean vx {vx:.4f} m/s, base z {z.min():.4f}..{z.max():.4f} m, "
+          f"max |roll|,|pitch| {rp.max():.2f} deg, finite {finite}, diverged "
+          f"{mpc.diverged}, launches {loop_launches}, wall {wall_loop:.2f} s", flush=True)
+    print(f"[replan latency] first {replans[0]:.3f} ms (boot + 15 iterations), "
+          f"RTI median {np.median(lat):.3f} ms, p95 {np.percentile(lat, 95):.3f} ms, "
+          f"max {lat.max():.3f} ms against the {BUDGET_MS:.0f} ms budget ({card})",
+          flush=True)
+    mpc.close()
+    if not finite or mpc.diverged:
+        fail("the closed loop diverged or went non-finite")
+    if not (z.min() > 0.15 and z.max() < 0.45 and rp.max() < 25.0):
+        fail(f"the robot fell: z {z.min():.3f}..{z.max():.3f}, tilt {rp.max():.1f} deg")
+    if not vx > 0.2:
+        fail(f"mean forward speed {vx:.3f} m/s <= 0.2")
+    if loop_launches["dynjac"] <= 0 or loop_launches["lingram"] <= 0:
+        fail(f"the closed loop did not launch dynjac and lingram: {loop_launches}")
+
+    # dynjac's entry: at the controller's shape, launches from the loop
+    record("dynjac", "iterative_learning_nmpc_tpu_torch/csrc/dynjac.cu",
+           "iterative_learning_nmpc_tpu/ops/dynjac_kernel.py:573", max(e_p, e_J), ok_dj,
+           f"M=25: prim <= {b_p:.3e}, J <= 3e-5 * max|J| = {b_J:.3e} (J err {e_J:.3e}); "
+           f"M={args_big[0].shape[0]}: prim {e_p2:.3e} <= {b_p2:.3e}, J {e_J2:.3e} <= {b_J2:.3e}",
+           cuda_time_ms(lambda: dynjac(spec, *args25), 50),
+           cuda_time_ms(lambda: dynjac_plain(spec, *args25), 5),
+           dynjac_plain, (spec, *args25), dj_out, n_launch=loop_launches["dynjac"])
+
+    # ---- 9. the controller against the JAX-on-CPU golden ----
+    gold = np.load(os.path.join(ROOT, "tests", "data", "go2_trot_closed_loop_golden.npz"))
+    mpc = LocomotionMPC(spec_d, gait_name="trot", solve_async=False,
+                        phase_aligned_boot=True, device=dev)
+    mpc.set_command(gold["v_des"])
+    q_plan, _, _, _, tau_ff = mpc.optimize(gold["q0"], gold["v0"])
+    mpc.close()
+    off = mpc.boot_offsets[0]
+    du = rel(mpc._U_prev[0].cpu(), torch.as_tensor(gold["U"]))
+    dq = rel(torch.as_tensor(q_plan), torch.as_tensor(gold["q_plan"]))
+    dtau = rel(torch.as_tensor(tau_ff), torch.as_tensor(gold["tau_ff"]))
+    print(f"[controller vs JAX] boot offset {off} (golden {int(gold['boot_offset'])}), "
+          f"first plan rel|dU| {du:.2e} (gate {REL_GATE}), q_plan {dq:.2e}, "
+          f"tau_ff {dtau:.2e}", flush=True)
+    if off != int(gold["boot_offset"]):
+        fail(f"boot offset {off} != golden {int(gold['boot_offset'])}")
+    if not du <= REL_GATE:
+        fail(f"first plan rel|dU| {du:.2e} > {REL_GATE}")
+
+    print(f"[wall] chip_smoke.py {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

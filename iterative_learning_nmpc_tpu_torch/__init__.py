@@ -1,18 +1,24 @@
 """iterative_learning_nmpc_tpu_torch — the PyTorch + CUDA port of the
-quadruped NMPC stack (first slice: the batched warm-started RTI solve).
+quadruped NMPC stack (so far: the batched warm-started RTI solve and the
+closed-loop controller on a device plant).
 
 Sub-packages mirror ``iterative_learning_nmpc_tpu``:
 
 - ``robots``  : ``RobotSpec`` as a dataclass of tensors, the Go2 model.
-- ``models``  : batched rigid-body dynamics (FK, foot velocities, RNEA).
+- ``models``  : batched rigid-body dynamics (FK, foot velocities, RNEA, mass
+                matrix, forward dynamics) and numpy state conversions.
 - ``ocp``     : the Gauss-Newton residual stack of the whole-body OCP.
-- ``mpc``     : configuration dataclasses and the gait/cost catalog.
+- ``mpc``     : configuration, plan interpolation and ``LocomotionMPC``.
 - ``gait``    : cyclic contact planners (numpy host API).
-- ``solver``  : the batched GN-SQP/RTI solver with per-problem early exits.
+- ``solver``  : the batched GN-SQP/RTI solver with per-problem early exits,
+                and the phase-aligned cold boot.
+- ``sim``     : the soft-contact plant on the device.
 - ``ops``     : hand-written CUDA kernels (``csrc/``) with plain PyTorch
                 twins; CPU tensors take the twin, CUDA tensors the kernel.
 
-The package imports neither ``jax`` nor the JAX package.
+Entry points run on the CUDA card unless the caller names a device
+(``device.resolve_device``). The package imports neither ``jax`` nor the
+JAX package.
 """
 
 __version__ = "0.1.0"

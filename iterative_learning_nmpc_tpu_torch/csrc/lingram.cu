@@ -37,7 +37,12 @@ struct RowSink {
   }
 };
 
-__device__ __forceinline__ Dual relu(Dual g) { return g.v > 0.f ? g : Dual(0.f, 0.f); }
+// max(g, 0); at g == 0 its derivative is 1/2, the convention of jnp.maximum
+// under the JAX package's jacfwd linearization (a foot that enters stance
+// with zero warm-start force sits exactly there after a contact switch)
+__device__ __forceinline__ Dual relu(Dual g) {
+  return g.v > 0.f ? g : Dual(0.f, g.v == 0.f ? 0.5f * g.t : 0.f);
+}
 
 // AL-shifted hinge: two-sided affine row g + s where s > 0, max(g, 0) else
 __device__ __forceinline__ Dual hinge_shifted(Dual g, float s) {

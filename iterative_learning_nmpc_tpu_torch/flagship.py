@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .gait.planner import ContactPlanner
 from .models import dynamics as dyn
 from .mpc.config import get_quadruped_config
@@ -22,7 +23,9 @@ from .solver.sqp import TrajOptSolver, make_params
 
 
 def flagship(device=None, n_nodes: Optional[int] = None):
-    """(solver, X, U, params) for one problem (batch of one), cold-started."""
+    """(solver, X, U, params) for one problem (batch of one), cold-started,
+    on ``device`` (by default the CUDA card)."""
+    device = resolve_device(device)
     spec = go2_spec(device=device)
     gait, opt, cost = get_quadruped_config("trot", "go2")
     if n_nodes is not None:

@@ -3,7 +3,9 @@ the same numbers. Every input is read through ``np.asarray``: pass numpy
 arrays or any array object numpy can read (this module imports no JAX).
 
 The system's "weights" are the robot spec, the cost weights, the OCP
-parameters and the warm-start state (X, U, lam_eq, lam_ineq).
+parameters, the warm-start state (X, U, lam_eq, lam_ineq), and for the
+closed loop the plant's contact parameters and state and the controller's
+warm start. Tensors go to ``device``, by default the CUDA card.
 """
 from __future__ import annotations
 
@@ -12,12 +14,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .ocp.problem import OCPParams, Weights
 from .robots.spec import _TENSOR_FIELDS, RobotSpec
+from .sim.device_sim import ContactParams, SimState
 
 
 def _t(x, device):
-    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+    return torch.as_tensor(np.asarray(x, dtype=np.float32),
+                           device=resolve_device(device))
 
 
 def spec_from_numpy(src, device=None) -> RobotSpec:
@@ -53,3 +58,21 @@ def warm_start_from_numpy(X, U, lam_eq, lam_ineq, device=None):
         t = _t(a, device)
         out.append(t[None] if t.dim() == nd else t)
     return tuple(out)
+
+
+def contact_params_from_numpy(src, device=None) -> ContactParams:
+    """Plant contact parameters from an object with their fields."""
+    return ContactParams(**{f.name: _t(getattr(src, f.name), device)
+                            for f in dataclasses.fields(ContactParams)})
+
+
+def sim_state_from_numpy(q, v, t=0.0, device=None) -> SimState:
+    """Plant state (q, v, t) in the Euler chart."""
+    return SimState(_t(q, device), _t(v, device), _t(t, device))
+
+
+def controller_state_from_numpy(mpc, X, U, lam_eq, lam_ineq) -> None:
+    """Give a ``LocomotionMPC`` the warm start (X_prev, U_prev, lam,
+    lami) of its next replan, on its device."""
+    (mpc._X_prev, mpc._U_prev, mpc._lam_prev,
+     mpc._lami_prev) = warm_start_from_numpy(X, U, lam_eq, lam_ineq, device=mpc.device)

@@ -1,4 +1,5 @@
-"""Batched quadruped rigid-body dynamics: FK, foot velocities and RNEA.
+"""Batched quadruped rigid-body dynamics: FK, foot velocities, RNEA, the
+mass matrix, CoM and forward dynamics.
 
 Counterpart of ``iterative_learning_nmpc_tpu/models/dynamics.py``. Every
 function takes tensors with any leading batch dims: q, v, a (..., 18),
@@ -82,7 +83,8 @@ def foot_velocities(spec: RobotSpec, q: torch.Tensor, v: torch.Tensor) -> torch.
 
 
 def rnea(spec: RobotSpec, q: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
-         f_ext_feet: Optional[torch.Tensor] = None) -> torch.Tensor:
+         f_ext_feet: Optional[torch.Tensor] = None,
+         gravity: float = GRAVITY) -> torch.Tensor:
     """World-frame Newton-Euler inverse dynamics (..., 18):
     tau = M(q) a + C(q, v) v + g(q) - J^T f_ext."""
     jp, ax, m_legs, com_legs, Ic_legs = _leg_arrays(spec)
@@ -94,7 +96,7 @@ def rnea(spec: RobotSpec, q: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
     dw_b = matvec(R_b, matvec(Td, ypr_d) + matvec(T, ypr_dd))
     p_b = q[..., :3]
     g_vec = torch.zeros(3, dtype=q.dtype, device=q.device)
-    g_vec[2] = GRAVITY
+    g_vec[2] = gravity
     dv_b = a[..., :3] + g_vec
 
     lead = q.shape[:-1]
@@ -158,3 +160,47 @@ def rnea(spec: RobotSpec, q: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
     n_local = matvec(R_b.transpose(-1, -2), n_base_w)
     tau_ang = matvec(T.transpose(-1, -2), n_local)
     return torch.cat([F_tot, tau_ang, tau_legs.reshape(lead + (12,))], dim=-1)
+
+
+def bias_forces(spec: RobotSpec, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """C(q, v) v + g(q), (..., 18)."""
+    return rnea(spec, q, v, torch.zeros_like(v))
+
+
+def mass_matrix(spec: RobotSpec, q: torch.Tensor) -> torch.Tensor:
+    """Joint-space inertia M(q), (..., 18, 18): one RNEA per unit
+    acceleration at zero velocity and zero gravity, symmetrised."""
+    nv = q.shape[-1]
+    eye = torch.eye(nv, dtype=q.dtype, device=q.device)
+    qe = q.unsqueeze(-2).expand(q.shape[:-1] + (nv, nv))
+    cols = rnea(spec, qe, torch.zeros_like(qe), eye.expand_as(qe), gravity=0.0)
+    return 0.5 * (cols + cols.transpose(-1, -2))
+
+
+def id_torques(spec: RobotSpec, q, v, a, f_feet) -> torch.Tensor:
+    """Feed-forward joint torques (..., 12)."""
+    return rnea(spec, q, v, a, f_ext_feet=f_feet)[..., 6:]
+
+
+def com_position(spec: RobotSpec, q: torch.Tensor) -> torch.Tensor:
+    """Whole-body centre of mass (..., 3): the trunk (body 5) and the 12
+    leg links at their FK poses."""
+    Rs, ps, _, _ = _leg_frames(spec, q)
+    com_legs = spec.com[6:].reshape(4, 3, 3)
+    m_legs = spec.mass[6:].reshape(4, 3)
+    x_trunk = q[..., :3] + matvec(ypr_to_matrix(q[..., 3:6]), spec.com[5])
+    acc = spec.mass[5] * x_trunk
+    for k in range(3):
+        x_k = ps[k] + matvec(Rs[k], com_legs[:, k])           # (..., 4, 3)
+        acc = acc + (m_legs[:, k, None] * x_k).sum(-2)
+    return acc / spec.mass[5:].sum()
+
+
+def forward_dynamics(spec: RobotSpec, q, v, tau_joints, f_ext_feet=None) -> torch.Tensor:
+    """Accelerations (..., 18) from joint torques (..., 12) and world foot
+    forces: M(q) a = [0, tau] - rnea(q, v, 0, f_ext), by Cholesky."""
+    tau_full = torch.cat([torch.zeros(q.shape[:-1] + (6,), dtype=q.dtype,
+                                      device=q.device), tau_joints], dim=-1)
+    rhs = tau_full - rnea(spec, q, v, torch.zeros_like(v), f_ext_feet=f_ext_feet)
+    L = torch.linalg.cholesky(mass_matrix(spec, q))
+    return torch.cholesky_solve(rhs.unsqueeze(-1), L).squeeze(-1)

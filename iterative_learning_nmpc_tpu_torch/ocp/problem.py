@@ -171,17 +171,38 @@ def cone_values(f_eff: torch.Tensor, mu) -> torch.Tensor:
                         fy - mu * fz, -fy - mu * fz], dim=-1)
 
 
+def hinge(g: torch.Tensor) -> torch.Tensor:
+    """max(g, 0), with the derivative 1/2 at g == 0 under torch.func, as
+    ``jnp.maximum`` has under the JAX package's jacfwd linearization."""
+    return torch.maximum(g, torch.zeros_like(g))
+
+
+def hinge_slope(g: torch.Tensor) -> torch.Tensor:
+    """d max(g, 0) / d g as the jacfwd linearization takes it: 1 above 0,
+    1/2 at g == 0, 0 below."""
+    return (g > 0.0).to(g.dtype) + 0.5 * (g == 0.0).to(g.dtype)
+
+
 def hinge_shifted(g: torch.Tensor, s) -> torch.Tensor:
     """AL-shifted hinge for g <= 0 with shift s >= 0: the plain hinge
     max(g, 0) where s == 0, the two-sided affine row g + s where s > 0."""
     on = (s > 0.0).to(g.dtype)
-    return on * (g + s) + (1.0 - on) * torch.clamp_min(g, 0.0)
+    return on * (g + s) + (1.0 - on) * hinge(g)
 
 
 def hinge_shifted_act(g: torch.Tensor, s) -> torch.Tensor:
-    """Activity mask of hinge_shifted's derivative."""
+    """Activity mask of hinge_shifted (the JAX package's: 0 at g == 0)."""
     on = (s > 0.0).to(g.dtype)
     return on + (1.0 - on) * (g > 0.0).to(g.dtype)
+
+
+def hinge_shifted_slope(g: torch.Tensor, s) -> torch.Tensor:
+    """d hinge_shifted / d g as the jacfwd linearization takes it: the
+    activity mask, but 1/2 at g == 0 where s == 0. A foot that enters stance
+    with zero warm-start force sits exactly there after a contact switch, and
+    the GN step there differs by far between the two conventions."""
+    on = (s > 0.0).to(g.dtype)
+    return on + (1.0 - on) * hinge_slope(g)
 
 
 def _base_joint_residuals(x, base_ref, joint_ref, w_base, w_joint):
@@ -249,7 +270,7 @@ def stage_residual(
     if lam_ineq_k is not None:
         r_patch_core = hinge_shifted(gap_patch, lam_ineq_k[..., NC_CONE + NC_TORQUE:])
     else:
-        r_patch_core = torch.clamp_min(gap_patch, 0.0)
+        r_patch_core = hinge(gap_patch)
     r_patch = rst * cnt_k * r_patch_core * w.patch
 
     r_dyn = tau_full[..., :6] * w.dyn_cons
@@ -267,9 +288,9 @@ def stage_residual(
         s_c = cnt3 * lam_ineq_k[..., :NC_CONE].reshape(cnt_k.shape + (5,))
         cone = _flat(hinge_shifted(g_cone, s_c), 20) * w.cone
     else:
-        cone = _flat(torch.clamp_min(g_cone, 0.0), 20) * w.cone
+        cone = _flat(hinge(g_cone), 20) * w.cone
 
-    r_clear = ((1.0 - cnt_k) * torch.clamp_min(plane_k[..., 2] - p_feet[..., 2], 0.0)
+    r_clear = ((1.0 - cnt_k) * hinge(plane_k[..., 2] - p_feet[..., 2])
                * w.swing_clear)
 
     parts = [rb, rj, ra, rf, rf_zero, r_swing, r_disp, r_patch, r_dyn, r_cnt,
@@ -279,7 +300,7 @@ def stage_residual(
         if lam_ineq_k is not None:
             r_tau = hinge_shifted(g_tau, lam_ineq_k[..., NC_CONE:NC_CONE + NC_TORQUE])
         else:
-            r_tau = torch.clamp_min(g_tau, 0.0)
+            r_tau = hinge(g_tau)
         parts.append(r_tau * w.torque)
     return torch.cat(parts, dim=-1)
 

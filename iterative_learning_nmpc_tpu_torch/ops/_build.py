@@ -1,10 +1,13 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc and load them with ctypes.
 
-The three kernels are compiled together into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds):
+Each ``csrc/*.cu`` is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain
+C interface (no PyTorch headers, so the build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libnmpc_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o _build/<name>_<hash>.o csrc/<name>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/libnmpc_kernels_<hash>.so _build/*_<hash>.o
 
 The library lands in ``<package>/_build/`` (git-ignored), named by a hash of
 the sources, so an edited kernel is rebuilt on its next use. Nothing is
@@ -22,8 +25,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +37,7 @@ SIGNATURES = {
     "lingram_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "riccati_rollout_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P],
+    "dynjac_launch": [_P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 
@@ -63,6 +67,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libnmpc_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every nvcc process; raise with the failures' output."""
+    errors = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{' '.join(cmd)}\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
     out = library_path()
@@ -70,11 +85,20 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    nvcc, tag = _nvcc(), f"{out.stem.rsplit('_', 1)[1]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{f.stem}_{tag}.o" for f in cu]
+    procs = []
+    for src, obj in zip(cu, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+    _run(procs)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True))])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 

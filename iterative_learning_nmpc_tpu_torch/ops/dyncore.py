@@ -28,9 +28,9 @@ def dyncore_plain(spec: RobotSpec, X: torch.Tensor, A: torch.Tensor,
     return torch.cat([pf.reshape(M, 12), vf.reshape(M, 12), tau], dim=1)
 
 
-def _check(name, t, shape):
+def _check(op, name, t, shape):
     if t.dtype != torch.float32 or not t.is_contiguous() or tuple(t.shape) != shape:
-        raise ValueError(f"dyncore: {name} must be contiguous float32 {shape}, "
+        raise ValueError(f"{op}: {name} must be contiguous float32 {shape}, "
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
@@ -43,9 +43,9 @@ def dyncore(spec: RobotSpec, X: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"dyncore: unsupported device {X.device}")
     M = X.shape[0]
     X, A, Fe = X.contiguous(), A.contiguous(), Fe.contiguous()
-    _check("X", X, (M, 36))
-    _check("A", A, (M, 18))
-    _check("Fe", Fe, (M, 12))
+    _check("dyncore", "X", X, (M, 36))
+    _check("dyncore", "A", A, (M, 18))
+    _check("dyncore", "Fe", Fe, (M, 12))
     if A.device != X.device or Fe.device != X.device:
         raise ValueError("dyncore: X, A, Fe must share one device")
     consts = robot_consts(spec.to(X.device))

@@ -14,6 +14,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 PRISMATIC = 0
 REVOLUTE = 1
 
@@ -88,7 +90,9 @@ def build_quadruped_spec(
 ) -> RobotSpec:
     """Assemble a 4-legged RobotSpec from per-leg link parameters; left/right
     legs mirror in y, front/rear hip CoMs in x (same rules as the JAX
-    package's ``build_quadruped_spec``)."""
+    package's ``build_quadruped_spec``). The tensors go to ``device``, by
+    default the CUDA card (``device.resolve_device``)."""
+    device = resolve_device(device)
     parent, jtype, axis, pos = _base_dofs()
     mass = [0.0] * 5 + [trunk_mass]
     com = [[0, 0, 0]] * 5 + [list(trunk_com)]

@@ -4,11 +4,18 @@ Counterpart of ``iterative_learning_nmpc_tpu/solver/sqp.py`` for the
 non-time-optimal path. One SQP iteration of a batch of B problems:
 
   1. shooting defects (exactly linear double-integrator dynamics),
-  2. Gauss-Newton blocks of every (problem, node)      -> ops.lingram,
+  2. Gauss-Newton blocks of every (problem, node)      -> ops.lingram, or for
+     a single problem (B = 1, the controller's replan) the JAX package's
+     unbatched route: linearize.lingram_structured    -> ops.dynjac,
   3. terminal Gram, Riccati sweep, alpha=1 rollout     -> ops.riccati_rollout,
   4. merit of every line-search alpha + the AL dual inputs from one
      FK/RNEA pass over all candidates                  -> ops.dyncore,
   5. damped inequality-dual update.
+
+The B = 1 route keeps steps 3 and 4 on the same kernels as a batch: the
+riccati kernel builds in-kernel the terminal Gram that the JAX package builds
+with ``_linearize_terminal`` + ``_riccati_solve_structured``, and dyncore
+evaluates the line search where the JAX package uses its XLA residual stack.
 
 The loops keep the semantics of ``jax.vmap`` over the JAX package's
 ``while_loop``s: the outer loop stops a problem at step_norm <= nlp_tol, the
@@ -22,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models.dynamics import GRAVITY
 from ..mpc.config import MPCCostConfig, MPCOptConfig
 from ..ocp.problem import (
@@ -34,10 +42,11 @@ from ..ocp.problem import (
     make_weights,
 )
 from ..ops.dyncore import dyncore
+from ..ops.dynjac import dynjac
 from ..ops.lingram import lingram
 from ..ops.riccati import riccati_rollout
 from ..robots.spec import RobotSpec
-from .linearize import cost_dual
+from .linearize import cost_dual, lingram_structured
 
 
 class SolveStats(NamedTuple):
@@ -64,14 +73,16 @@ def _select(mask, new, old):
 
 
 class TrajOptSolver:
-    """Batched solver bound to (robot, configs, device).
+    """Batched solver bound to (robot, configs, device); the device is the
+    CUDA card unless one is named.
 
-    The step's three kernels are the ops dispatchers below: CPU tensors take
+    The step's kernels are the ops dispatchers below: CPU tensors take
     their plain PyTorch twins, CUDA tensors the CUDA kernels. A subclass may
     bind the plain twins by name to compose the plain path on any device.
     """
 
     lingram = staticmethod(lingram)
+    dynjac = staticmethod(dynjac)
     riccati_rollout = staticmethod(riccati_rollout)
     dyncore = staticmethod(dyncore)
 
@@ -80,7 +91,7 @@ class TrajOptSolver:
         if opt.enable_time_opt:
             raise NotImplementedError("the per-node time-optimal mode is not "
                                       "ported yet")
-        self.device = torch.device(device if device is not None else spec.device)
+        self.device = resolve_device(device)
         self.spec = spec.to(self.device)
         self.opt = opt
         self.cost = cost
@@ -107,9 +118,14 @@ class TrajOptSolver:
         """The raw alpha=1 GN step (dX1, dU1) and the defects at (X, U)."""
         defects = self._defects(X, U, p)
         dx0 = p.x0 - X[:, 0]
-        Q, R, M, qx, ru = self.lingram(
-            self.spec, self.weights, X, U, p,
-            include_torque=self.opt.torque_limit_in_qp)
+        inc = self.opt.torque_limit_in_qp
+        if X.shape[0] == 1:
+            Q, R, M, qx, ru = lingram_structured(
+                self.spec, self.weights, X, U, p, include_torque=inc,
+                dynjac_fn=self.dynjac)
+        else:
+            Q, R, M, qx, ru = self.lingram(self.spec, self.weights, X, U, p,
+                                           include_torque=inc)
         dX1, dU1 = self.riccati_rollout(
             self.spec, self.weights, self.dt_nodes, float(self.opt.lm_reg),
             float(self.cost.reg_eps_e), Q, R, M, qx, ru, defects, dx0,

@@ -1,0 +1,75 @@
+"""Timing instrumentation of the controller.
+
+Counterpart of ``iterative_learning_nmpc_tpu/utils/profiling.py``: the same
+decorator and reports. On a CUDA device the clock is read only after the
+device has finished the work queued so far (``torch.cuda.synchronize``), so
+a timing covers the device work a call launched, not its enqueue.
+"""
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+from functools import wraps
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+
+def _sync(obj) -> None:
+    dev = getattr(obj, "device", None)
+    if isinstance(dev, torch.device) and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def time_fn(name: str):
+    """Append the wall-clock ms of each call into ``self.timings[name]``
+    when the object has ``compute_timings`` set; syncs ``self.device``
+    before both clock reads when it is a CUDA device."""
+
+    def decorator(fn):
+        @wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            if not getattr(self, "compute_timings", False):
+                return fn(self, *args, **kwargs)
+            _sync(self)
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            _sync(self)
+            dt_ms = (time.perf_counter() - t0) * 1.0e3
+            if not hasattr(self, "timings"):
+                self.timings = defaultdict(list)
+            self.timings[name].append(dt_ms)
+            return out
+
+        return wrapper
+
+    return decorator
+
+
+def print_timings(timings: Dict[str, List[float]]) -> None:
+    """mean / std / max over the calls after the first, and the first
+    call (it carries the one-time set-up) on its own."""
+    for name, values in timings.items():
+        if not values:
+            continue
+        first, rest = values[0], values[1:]
+        print(f"-- {name}")
+        if rest:
+            arr = np.asarray(rest)
+            print(f"   mean {arr.mean():.3f} ms | std {arr.std():.3f} ms | "
+                  f"max {arr.max():.3f} ms | calls {len(rest)}")
+        print(f"   first call: {first:.3f} ms")
+
+
+def summarize_timings(timings: Dict[str, List[float]]) -> Dict[str, Dict[str, float]]:
+    """Machine-readable variant of ``print_timings``."""
+    out = {}
+    for name, values in timings.items():
+        if not values:
+            continue
+        rest = np.asarray(values[1:]) if len(values) > 1 else np.asarray(values)
+        out[name] = dict(mean_ms=float(rest.mean()), std_ms=float(rest.std()),
+                         max_ms=float(rest.max()), first_ms=float(values[0]),
+                         calls=len(values))
+    return out

@@ -18,6 +18,7 @@ import torch
 
 from iterative_learning_nmpc_tpu_torch import flagship as F
 from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore, dyncore_plain
+from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain
 from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram, lingram_plain
 from iterative_learning_nmpc_tpu_torch.ops.riccati import (
     riccati_rollout, riccati_rollout_plain)
@@ -85,3 +86,45 @@ def test_riccati_kernel_matches_plain(card):
             pb.joint_ref, pb.step_height)
     for a, b in zip(riccati_rollout(*args), riccati_rollout_plain(*args)):
         assert _max_rel(a, b) <= 1e-3       # the bench's rel |dU| gate
+
+
+@pytest.mark.cuda
+def test_dynjac_kernel_matches_plain(card):
+    """The controller's shape: one problem's N=25 nodes, plus B=3."""
+    solver, X, U, p = card
+    for b in (1, B):
+        Xb, Ub, pb = F.perturbed_batch(X, U, p, b, seed=4)
+        M = b * solver.N
+        cnt = pb.cnt[:, :, :-1].transpose(1, 2).reshape(M, 4, 1)
+        args = (Xb[:, :-1].reshape(M, 36).contiguous(), Ub[..., :18].reshape(M, 18).contiguous(),
+                (cnt * Ub[..., 18:].reshape(M, 4, 3)).reshape(M, 12).contiguous())
+        n0 = dynjac.launches
+        (pk, Jk), (pp, Jp) = dynjac(solver.spec, *args), dynjac_plain(solver.spec, *args)
+        assert dynjac.launches == n0 + 1
+        assert Jk.shape == (M, 42, 54)
+        # tests/test_dynjac_kernel.py's bounds against the jacfwd oracle
+        assert float((pk - pp).abs().max()) <= 1e-5 * max(1.0, float(pp.abs().max()))
+        assert float((Jk - Jp).abs().max()) <= 3e-5 * float(Jp.abs().max())
+
+
+@pytest.mark.cuda
+def test_entry_points_default_to_the_card(card):
+    """Called without a device, the entry points put their tensors on the
+    CUDA card."""
+    from iterative_learning_nmpc_tpu_torch.interop import sim_state_from_numpy
+    from iterative_learning_nmpc_tpu_torch.mpc.controller import LocomotionMPC
+    from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec
+    from iterative_learning_nmpc_tpu_torch.sim import device_sim
+
+    solver, X, U, params = F.flagship()
+    assert solver.device.type == "cuda"
+    assert X.is_cuda and U.is_cuda and params.x0.is_cuda and solver.spec.mass.is_cuda
+    spec = go2_spec()
+    assert spec.mass.is_cuda
+    mpc = LocomotionMPC(spec)
+    try:
+        assert mpc.device.type == "cuda" and mpc.solver.weights.base.is_cuda
+    finally:
+        mpc.close()
+    assert device_sim.contact_params_for(spec).stiffness.is_cuda
+    assert sim_state_from_numpy(np.zeros(18), np.zeros(18)).q.is_cuda

@@ -45,7 +45,7 @@ def _jax_gram(spec, w, X, U, p, include_torque):
 
 def test_dyncore_plain_matches_jax_dynamics():
     js = _flagship(n_nodes=N)[0].spec
-    spec = spec_from_numpy(js)
+    spec = spec_from_numpy(js, device="cpu")
     rng = np.random.default_rng(11)
     M = 40
     X = np.concatenate([np.asarray(js.q_home)[None] + 0.3 * rng.standard_normal((M, 18)),
@@ -84,8 +84,9 @@ def gram_case():
 @pytest.mark.parametrize("include_torque", [True, False])
 def test_lingram_plain_matches_jacfwd_gram(gram_case, include_torque):
     solver, X, U, pb, refs = gram_case
-    spec, w = spec_from_numpy(solver.spec), weights_from_numpy(solver.weights)
-    tp = params_from_numpy(pb)
+    spec = spec_from_numpy(solver.spec, device="cpu")
+    w = weights_from_numpy(solver.weights, device="cpu")
+    tp = params_from_numpy(pb, device="cpu")
     Xt, Ut = torch.as_tensor(X), torch.as_tensor(U)
     out = lingram_plain(spec, w, Xt, Ut, tp, include_torque)
     for a, b in zip(lingram(spec, w, Xt, Ut, tp, include_torque), out):
@@ -123,7 +124,8 @@ def test_riccati_rollout_plain_matches_structured_sweep(riccati_case):
     js, jw = solver.spec, solver.weights
     h, lm, reg = solver.dt_nodes, float(solver.opt.lm_reg), float(solver.cost.reg_eps_e)
 
-    spec, w, tp = spec_from_numpy(js), weights_from_numpy(jw), params_from_numpy(pb)
+    spec, w = spec_from_numpy(js, device="cpu"), weights_from_numpy(jw, device="cpu")
+    tp = params_from_numpy(pb, device="cpu")
     # the same GN blocks (the port's plain Gram) go into both sweeps
     blocks = lingram_plain(spec, w, torch.as_tensor(X), torch.as_tensor(U), tp)
 

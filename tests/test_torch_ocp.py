@@ -59,9 +59,9 @@ def make_case(seed: int = 3):
 @pytest.fixture(scope="module")
 def case():
     solver, X, U, pb = make_case()
-    spec = spec_from_numpy(solver.spec)
-    w = weights_from_numpy(solver.weights)
-    return solver, X, U, pb, spec, w, params_from_numpy(pb)
+    spec = spec_from_numpy(solver.spec, device="cpu")
+    w = weights_from_numpy(solver.weights, device="cpu")
+    return solver, X, U, pb, spec, w, params_from_numpy(pb, device="cpu")
 
 
 def _jax_nodes(p):

@@ -39,7 +39,7 @@ def near_converged_batch(n_nodes: int, batch: int, seed: int):
     """The port's converged flagship solution replicated over ``batch``
     problems (numpy), plus the JAX solver and a batched numpy OCPParams."""
     jsol, _, _, jp = _flagship(n_nodes=n_nodes)
-    tsol, tX, tU, tp = tflag.flagship(n_nodes=n_nodes)
+    tsol, tX, tU, tp = tflag.flagship(n_nodes=n_nodes, device="cpu")
     conv = tsol.solve(tX, tU, tp, 15)
     rep = lambda a: np.repeat(np.asarray(a)[None], batch, 0)
     X, U = rep(conv.X[0].numpy()), rep(conv.U[0].numpy())
@@ -81,7 +81,8 @@ def torch_rti(tsol, X, U, tp):
 def test_rti_step_matches_jax(case):
     jsol, tsol, X, U, pb, jax_rti = case
     js, jlam = jax_rti(X, U, pb)
-    ts, tlam = torch_rti(tsol, torch.as_tensor(X), torch.as_tensor(U), params_from_numpy(pb))
+    ts, tlam = torch_rti(tsol, torch.as_tensor(X), torch.as_tensor(U),
+                         params_from_numpy(pb, device="cpu"))
     for b in range(B):
         assert rel(ts.U[b], js.U[b]) <= GATE[b], b
         assert rel(ts.X[b], js.X[b]) <= GATE[b], b
@@ -98,7 +99,7 @@ def test_rti_step_matches_jax(case):
     np.testing.assert_allclose(ts.stats.cost.numpy(), np.asarray(js.stats.cost), rtol=1e-4)
     # without r_eq= the update recomputes the rows at (X, U): the same FK/RNEA
     # values in a batch of another size, so within fp32 reassociation
-    tp = params_from_numpy(pb)
+    tp = params_from_numpy(pb, device="cpu")
     np.testing.assert_allclose(tsol.update_multipliers(ts.X, ts.U, tp).numpy(),
                                tlam.numpy(), rtol=0, atol=1e-5)
 
@@ -108,7 +109,8 @@ def test_inner_loop_freezes_finished_problems(case):
     runs on; their results must be those of a solve that stopped there."""
     jsol, tsol, X, U, pb, jax_rti = case
     js, _ = jax_rti(X, U, pb)
-    ts, _ = torch_rti(tsol, torch.as_tensor(X), torch.as_tensor(U), params_from_numpy(pb))
+    ts, _ = torch_rti(tsol, torch.as_tensor(X), torch.as_tensor(U),
+                      params_from_numpy(pb, device="cpu"))
     qp = ts.stats.qp_iters.numpy()
     assert qp[0] == 1 and qp[1] == 1 and qp[2] > 1, qp
     np.testing.assert_array_equal(qp, np.asarray(js.stats.qp_iters))
@@ -116,7 +118,8 @@ def test_inner_loop_freezes_finished_problems(case):
     # problem stops after one pass. Same shapes, same kernels, so a frozen
     # problem's result must be bit-identical between the two batches.
     calm = dataclasses.replace(pb, restrict=np.zeros_like(pb.restrict))
-    tc, _ = torch_rti(tsol, torch.as_tensor(X), torch.as_tensor(U), params_from_numpy(calm))
+    tc, _ = torch_rti(tsol, torch.as_tensor(X), torch.as_tensor(U),
+                      params_from_numpy(calm, device="cpu"))
     assert tc.stats.qp_iters.tolist() == [1, 1, 1]
     for b in (0, 1):
         for a, c in ((ts.X, tc.X), (ts.U, tc.U), (ts.lam_ineq, tc.lam_ineq),
@@ -131,7 +134,7 @@ def test_rti_chain_matches_jax(case):
     jX, jU, jl, jli = X, U, np.zeros_like(pb.lam_eq), pb.lam_ineq
     tX, tU = torch.as_tensor(X), torch.as_tensor(U)
     tl, tli = torch.as_tensor(jl), torch.as_tensor(jli)
-    tp = params_from_numpy(pb)
+    tp = params_from_numpy(pb, device="cpu")
     for step in range(5):
         jp = dataclasses.replace(pb, lam_eq=jl, lam_ineq=jli)
         js, jl = jax_rti(jX, jU, jp)

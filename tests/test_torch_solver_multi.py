@@ -45,7 +45,8 @@ def test_three_iteration_solve_matches_jax(converged):
     pb.x0[:, 6:18] += shift
     X[:, 0, 6:18] += shift
     js = jax.jit(jax.vmap(lambda x, u, p: jsol.solve(x, u, p, 3)))(X, U, pb)
-    ts = tsol.solve(torch.as_tensor(X), torch.as_tensor(U), params_from_numpy(pb), 3)
+    ts = tsol.solve(torch.as_tensor(X), torch.as_tensor(U),
+                    params_from_numpy(pb, device="cpu"), 3)
     np.testing.assert_array_equal(ts.stats.sqp_iters.numpy(), np.asarray(js.stats.sqp_iters))
     assert int(ts.stats.sqp_iters.min()) > 1
     np.testing.assert_array_equal(ts.stats.qp_iters.numpy(), np.asarray(js.stats.qp_iters))
@@ -66,7 +67,7 @@ def test_plain_path_matches_golden_flagship(golden):
     """Plain path on the CPU, Go2 trot N=25: the flagship instance, its
     15-iteration converged solve (cost in the BENCH_ANCHOR.json band) and
     one RTI step from the golden converged point, against the JAX solve."""
-    solver, X, U, params = tflag.flagship()
+    solver, X, U, params = tflag.flagship(device="cpu")
     # the port rebuilds the same instance: fp32 FK of the standing pose
     np.testing.assert_allclose(params.x0[0].numpy(), golden["x0"], rtol=0, atol=1e-6)
     np.testing.assert_array_equal(params.cnt[0].numpy(), golden["cnt"])
@@ -81,7 +82,7 @@ def test_plain_path_matches_golden_flagship(golden):
 
     Xg, Ug, _, lig = warm_start_from_numpy(golden["X_conv"], golden["U_conv"],
                                            golden["U_conv"][:, :18],
-                                           golden["lam_ineq_conv"])
+                                           golden["lam_ineq_conv"], device="cpu")
     rti = solver.solve(Xg, Ug, params.replace(lam_ineq=lig), 1)
     assert rel(rti.U[0], golden["U_rti"]) <= 1e-3
     assert rel(rti.X[0], golden["X_rti"]) <= 1e-3
@@ -97,7 +98,7 @@ def test_warm_start_helpers_match_jax(converged):
     pb.cnt[1] = (rng.random(pb.cnt[1].shape) > 0.5).astype(np.float32)
     lam = rng.standard_normal(pb.lam_eq.shape).astype(np.float32)
     jX0, jU0 = jax.vmap(jsol.cold_start)(pb)
-    tX0, tU0 = tsol.cold_start(params_from_numpy(pb))
+    tX0, tU0 = tsol.cold_start(params_from_numpy(pb, device="cpu"))
     # fz = g * m_total / n_active: fp32, the mass sum reassociated
     np.testing.assert_allclose(tU0.numpy(), np.asarray(jU0), rtol=1e-6, atol=0)
     np.testing.assert_array_equal(tX0.numpy(), np.asarray(jX0))
