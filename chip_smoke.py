@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through their public entry points and checks
+Drives the port's paths through their public entry points and checks
 every CUDA kernel of them against its plain PyTorch twin: the batched
 warm-started RTI solve of the Go2 trot NMPC (N=25 nodes, 36-dim state,
-30-dim input), and the closed-loop controller (``LocomotionMPC``, one
-problem per replan) driving the device plant. Phases, one line each:
+30-dim input), the closed-loop controller (``LocomotionMPC``, one problem
+per replan) driving the device plant, and the learned-policy serving path
+(the shipped 47 -> 512x3 -> 12 policy served to 256 environments on the
+device plant). Phases, one line each:
 
   1. the card's name and power limit (nvidia-smi),
   2. build the kernels from ``iterative_learning_nmpc_tpu_torch/csrc``,
@@ -27,7 +29,22 @@ problem per replan) driving the device plant. Phases, one line each:
      the launch counters set to 0 before it and read after it: base
      height, attitude, forward speed and replan latency,
   9. the controller's cold boot and first plan against the JAX-on-CPU
-     golden (tests/data/go2_trot_closed_loop_golden.npz).
+     golden (tests/data/go2_trot_closed_loop_golden.npz),
+ 11. the batched policy rollout of assets/policy_go2_trot_ondevice_dagger.pkl:
+     256 envs from the standing pose (joint noise, env 0 clean), 0.3 m/s,
+     1000 steps, counters set to 0 before it: at most 8 falls (the JAX
+     reference's own spread), forward progress,
+     policy_pd launched once per step, env 0 against the JAX golden
+     (tests/data/go2_trot_policy_rollout_golden.npz),
+ 12. on-device expert datagen: 256 envs x 20 replanning intervals (0.8 s),
+     counters set to 0 before it: the dataset gates of
+     tests/test_ondevice.py, the batch solver's kernels launched,
+ 10. policy_pd against its plain twin at B=256 (the datagen's last
+     observations), 4096 and 1000 (a ragged tile), timed with CUDA events
+     (it runs after 12, whose rows it takes),
+ 13. SafeDAgger mode: 256 envs x 8 intervals (policy for 20 steps, the MPC
+     latched >= 60 steps once engaged), then B=2 x 2 intervals against the
+     JAX golden (tests/data/go2_trot_safedagger_golden.npz).
 
 It then prints one JSON line with the kernels' results (each with its
 bound: the larger of its operations over the card's fp32 rate and its
@@ -45,6 +62,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH, CHAIN_STEPS, SEED = 512, 20, 0
 REL_GATE = 1.0e-3          # the bench's rel |dU| / (1 + |U|) gate
 LOOP_S, V_DES, BUDGET_MS = 2.0, 0.3, 40.0
+# the learned-policy phases: the shipped policy, B environments from the
+# standing pose with joint noise N(0, NOISE^2) (env 0 clean)
+ARTIFACT = "policy_go2_trot_ondevice_dagger.pkl"
+B_ENV, NOISE, V_MAX = 256, 0.03, 0.3
+T_POLICY, PROGRESS_GATE = 1000, 0.15      # steps; mean forward metres after 1 s
+# per-env trajectories decorrelate within ~0.3 s (stiff contact, policy
+# feedback), so which envs fall is not reproducible across fp32 libraries:
+# the JAX package on the CPU drops 0, 1, 2, 4, 4 of 256 over noise seeds 0-4
+MAX_FALLS = 8
+N_DATAGEN, N_DAGGER = 20, 8               # replanning intervals of 40 ms
+DELAY_STEPS, MPC_MIN_STEPS = 20, 60
+POLICY_KP, POLICY_KD = 20.0, 1.5
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores (every
 # kernel here is fp32 scalar code), and HBM3
 PEAK_FLOPS, PEAK_BYTES = 67.0e12, 3.35e12
@@ -179,6 +208,179 @@ class PlantData:
     time, qpos, qvel = 0.0, None, None
 
 
+def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> None:
+    """Phases 10-13 on ``dev``: the shipped policy served to B_ENV
+    environments by the policy rollout, the expert datagen and its SafeDAgger
+    mode; ``record`` adds policy_pd's line to the kernels' results (its
+    launches are the policy rollout's)."""
+    import numpy as np
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch.learning.network import ServedPolicy, load_policy
+    from iterative_learning_nmpc_tpu_torch.learning.ondevice import make_batched_mpc_rollout
+    from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd, policy_pd_plain
+    from iterative_learning_nmpc_tpu_torch.sim import device_sim
+
+    net, norm = load_policy(os.path.join(ROOT, "assets", ARTIFACT), device=dev)
+    served = ServedPolicy(net, norm, device=dev)
+    gold_r = np.load(os.path.join(ROOT, "tests", "data", "go2_trot_policy_rollout_golden.npz"))
+    gold_d = np.load(os.path.join(ROOT, "tests", "data", "go2_trot_safedagger_golden.npz"))
+    dq0 = float(np.abs(q0 - gold_r["q0"][0]).max())
+    if dq0 > 1e-6:
+        fail(f"the standing pose differs from the learning golden's by {dq0:.2e}")
+    rng = np.random.default_rng(SEED)
+
+    def noisy_starts(n):
+        """n standing starts (n, 18), joint noise N(0, 0.03^2) on all but env 0."""
+        qb = np.tile(gold_r["q0"][:1], (n, 1))
+        qb[1:, 6:] += rng.normal(0, NOISE, (n - 1, 12)).astype(np.float32)
+        return qb
+
+    def zero_counters():
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+
+    # ---- 11. batched policy rollout ----
+    q0b = noisy_starts(B_ENV)
+    vd = np.tile(np.array([[V_DES, 0.0, 0.0]], np.float32), (B_ENV, 1))
+    rollout = device_sim.make_batched_policy_rollout(spec_d, (net, norm), T_POLICY, device=dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    Q, V, fell = rollout(q0b, np.zeros((B_ENV, 18), np.float32), vd)
+    torch.cuda.synchronize()
+    wall_pol = time.perf_counter() - t0
+    pol_launches = policy_pd.launches
+    Q, V, fell = Q.cpu().numpy(), V.cpu().numpy(), fell.cpu().numpy()
+    prog = Q[:, -1, 0] - q0b[:, 0]
+    T_g = gold_r["Q"].shape[1]
+    e_q = float(np.abs(Q[0, :T_g] - gold_r["Q"][0]).max())
+    e_vb = float(np.abs(V[0, :T_g, :6] - gold_r["V"][0, :, :6]).max())
+    e_v10 = float(np.abs(V[0, :10] - gold_r["V"][0, :10]).max())
+    print(f"[policy rollout] B={B_ENV} T={T_POLICY} (artifact, 0.3 m/s, joint noise "
+          f"{NOISE}): fell {int(fell.sum())}, progress mean {prog.mean():.4f} m "
+          f"(min {prog.min():.4f}), base z {Q[..., 2].min():.4f}..{Q[..., 2].max():.4f}, "
+          f"policy_pd launches {pol_launches}, wall {wall_pol:.2f} s "
+          f"({wall_pol / T_POLICY * 1e3:.3f} ms per control step; {card}); env 0 vs "
+          f"JAX golden over {T_g} steps: q {e_q:.2e} (<= 5e-3), base v {e_vb:.2e} "
+          f"(<= 0.1), v over 10 steps {e_v10:.2e} (<= 2e-3)", flush=True)
+    if not np.isfinite(Q).all() or int(fell.sum()) > MAX_FALLS:
+        fail(f"policy rollout: {int(fell.sum())} envs fell (> {MAX_FALLS}) or "
+             "non-finite states")
+    if not prog.mean() > PROGRESS_GATE:
+        fail(f"policy rollout: mean progress {prog.mean():.4f} m <= {PROGRESS_GATE}")
+    if pol_launches != T_POLICY:
+        fail(f"policy rollout launched policy_pd {pol_launches} times, not {T_POLICY}")
+    # tests/test_torch_policy.py's bounds: foot impacts amplify the
+    # plant's ~1e-5 per-step fp32 differences through the policy
+    if not (e_q <= 5e-3 and e_vb <= 0.1 and e_v10 <= 2e-3):
+        fail("policy rollout env 0 disagrees with the JAX golden")
+
+    # ---- 12. on-device expert datagen ----
+    x0b = np.concatenate([noisy_starts(B_ENV), np.zeros((B_ENV, 18), np.float32)], 1)
+    vd = np.zeros((B_ENV, 3), np.float32)
+    vd[:, 0] = rng.uniform(0.0, V_MAX, B_ENV)
+    datagen = make_batched_mpc_rollout(spec_d, n_intervals=N_DATAGEN, device=dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    rows = datagen(x0b, vd)
+    torch.cuda.synchronize()
+    wall_dg = time.perf_counter() - t0
+    dg_launches = {k.__name__: k.launches for k in kernels}
+    T_dg = rows.q.shape[1]
+    z = rows.q[..., 2]
+    valid = float(rows.valid.mean())
+    finite = all(bool(torch.isfinite(t).all()) for t in rows)
+    act_max = float(rows.action.abs().max())
+    print(f"[datagen] B={B_ENV} x {N_DATAGEN} intervals ({T_dg} control steps, vx ~ "
+          f"U(0, {V_MAX})): valid {valid:.4f}, base z {float(z.min()):.4f}.."
+          f"{float(z.max()):.4f}, |action| max {act_max:.3f}, finite {finite}, "
+          f"{B_ENV * T_dg / wall_dg:.1f} rows/s ({wall_dg:.2f} s wall, "
+          f"{wall_dg / T_dg * 1e3:.3f} ms per control step; {card}; informational), "
+          f"launches {dg_launches}", flush=True)
+    if not (valid > 0.9 and float(z.min()) > 0.15 and float(z.max()) < 0.45
+            and finite and act_max < 4.0):
+        fail("datagen rows outside the gates of tests/test_ondevice.py")
+    if min(dg_launches[k] for k in ("lingram", "riccati_rollout", "dyncore")) <= 0:
+        fail(f"datagen did not launch the batch solver's kernels: {dg_launches}")
+
+    # ---- 10. policy_pd against its twin, on the datagen's observations ----
+    layers = served.layers
+    flat = lambda t: t.reshape(-1, t.shape[-1])
+    obs = served.normalize(flat(rows.state44),
+                           torch.as_tensor(vd, device=dev).repeat_interleave(T_dg, 0))
+    qj_all, vj_all = flat(rows.q)[:, 6:].contiguous(), flat(rows.v)[:, 6:].contiguous()
+    pick = torch.randperm(obs.shape[0], generator=torch.Generator().manual_seed(SEED))
+    pp_results = {}
+    for nb in (B_ENV, 4096, 1000):
+        idx = (torch.arange(B_ENV) * T_dg + T_dg - 1 if nb == B_ENV else pick[:nb]).to(dev)
+        args = (layers, POLICY_KP, POLICY_KD, obs[idx].contiguous(), qj_all[idx], vj_all[idx])
+        (ak, tk), (ap, tp) = policy_pd(*args), policy_pd_plain(*args)
+        torch.cuda.synchronize()
+        # tests/test_policy_kernel.py's bounds: fp32 sums over K = 512
+        # reassociated, tau scaled by kp
+        ok = bool(((ak - ap).abs() <= 2e-5 + 2e-4 * ap.abs()).all()
+                  and ((tk - tp).abs() <= 1e-3 + 2e-4 * tp.abs()).all())
+        err = max(float((ak - ap).abs().max()), float((tk - tp).abs().max()))
+        ms = cuda_time_ms(lambda: policy_pd(*args), 50)
+        plain_ms = cuda_time_ms(lambda: policy_pd_plain(*args), 20)
+        pp_results[nb] = (err, ok, ms, plain_ms, args, (ak, tk))
+        b_ms, b_by, flops, nbytes = bound(policy_pd_plain, args, (ak, tk))
+        print(f"[policy_pd] B={nb}: max_abs_err {err:.3e}, {ms:.4f} ms vs plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({flops:.4e} flop, "
+              f"{nbytes} B; {card})", flush=True)
+    err, ok, ms, plain_ms, args, out_k = pp_results[B_ENV]
+    launches["policy_pd"] = pol_launches
+    record("policy_pd", "iterative_learning_nmpc_tpu_torch/csrc/policy_pd.cu",
+           "iterative_learning_nmpc_tpu/ops/policy_kernel.py:60",
+           max(r[0] for r in pp_results.values()), all(r[1] for r in pp_results.values()),
+           "|d act| <= 2e-5 + 2e-4 |act|, |d tau| <= 1e-3 + 2e-4 |tau| at B = "
+           + ", ".join(map(str, pp_results)), ms, plain_ms, policy_pd_plain, args, out_k)
+
+    # ---- 13. SafeDAgger mode ----
+    x0b = np.concatenate([noisy_starts(B_ENV), np.zeros((B_ENV, 18), np.float32)], 1)
+    vd = np.tile(np.array([[V_DES, 0.0, 0.0]], np.float32), (B_ENV, 1))
+    dagger = make_batched_mpc_rollout(
+        spec_d, n_intervals=N_DAGGER, policy=(net, norm), delay_steps=DELAY_STEPS,
+        mpc_min_steps=MPC_MIN_STEPS, device=dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    rows = dagger(x0b, vd)
+    torch.cuda.synchronize()
+    wall_sd = time.perf_counter() - t0
+    sd_launches = {k.__name__: k.launches for k in kernels}
+    exp, valid = rows.is_expert.cpu().numpy(), float(rows.valid.mean())
+    T_sd = exp.shape[1]
+    print(f"[safedagger] B={B_ENV} x {N_DAGGER} intervals ({T_sd} steps, delay "
+          f"{DELAY_STEPS}, MPC latched >= {MPC_MIN_STEPS}): expert share "
+          f"{exp.mean():.4f}, policy-only over the delay {bool((exp[:, :DELAY_STEPS] == 0).all())}, "
+          f"valid {valid:.4f}, wall {wall_sd:.2f} s ({wall_sd / T_sd * 1e3:.3f} ms per "
+          f"control step; {card}), launches {sd_launches}", flush=True)
+    if not ((exp[:, :DELAY_STEPS] == 0).all() and sd_launches["policy_pd"] > 0):
+        fail("SafeDAgger: the expert acted during the delay or policy_pd never ran")
+    if not valid > 0.9:
+        fail(f"SafeDAgger: valid share {valid:.4f} <= 0.9")
+    small = make_batched_mpc_rollout(
+        spec_d, n_intervals=int(gold_d["n_intervals"]), policy=(net, norm),
+        delay_steps=int(gold_d["delay_steps"]), mpc_min_steps=int(gold_d["mpc_min_steps"]),
+        device=dev)
+    rows = {k: v.cpu().numpy() for k, v in small(gold_d["x0"], gold_d["v_des"])._asdict().items()}
+    same = all(np.array_equal(rows[k], gold_d[k]) for k in ("is_expert", "valid"))
+    err = lambda k, n=None, cols=slice(None): float(
+        np.abs(rows[k][:, :n][..., cols] - gold_d[k][:, :n][..., cols]).max())
+    errs = dict(q1=err("q", 40), v1=err("v", 40, slice(0, 6)), a1=err("action", 40),
+                q=err("q"), a=err("action"))
+    print(f"[safedagger vs JAX] B=2 x {int(gold_d['n_intervals'])} intervals: is_expert "
+          f"and valid identical {same}; first interval: q {errs['q1']:.2e} (<= 5e-3), "
+          f"base v {errs['v1']:.2e} (<= 0.1), action {errs['a1']:.2e} (<= 5e-2); all "
+          f"rows: q {errs['q']:.2e} (<= 5e-2), action {errs['a']:.2e} (<= 0.15)", flush=True)
+    # tests/test_torch_ondevice.py's bounds: once the expert takes over the
+    # closed loop doubles the rows' fp32 deviation every ~10 steps
+    if not (same and errs["q1"] <= 5e-3 and errs["v1"] <= 0.1 and errs["a1"] <= 5e-2
+            and errs["q"] <= 5e-2 and errs["a"] <= 0.15):
+        fail("SafeDAgger B=2 disagrees with the JAX golden")
+
+
 def main() -> None:
     import torch
 
@@ -197,6 +399,7 @@ def main() -> None:
     from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore, dyncore_plain
     from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain
     from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram, lingram_plain
+    from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd
     from iterative_learning_nmpc_tpu_torch.ops.riccati import (
         riccati_rollout, riccati_rollout_plain)
     from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec
@@ -206,7 +409,7 @@ def main() -> None:
     from iterative_learning_nmpc_tpu_torch.solver.sqp import TrajOptSolver
 
     t_start = time.perf_counter()
-    kernels = (dyncore, lingram, riccati_rollout, dynjac)
+    kernels = (dyncore, lingram, riccati_rollout, dynjac, policy_pd)
 
     dev = torch.device("cuda", 0)
 
@@ -497,6 +700,9 @@ def main() -> None:
         fail(f"boot offset {off} != golden {int(gold['boot_offset'])}")
     if not du <= REL_GATE:
         fail(f"first plan rel|dU| {du:.2e} > {REL_GATE}")
+
+    # ---- 10-13. the learned-policy serving path ----
+    policy_phases(dev, card, spec_d, q0, kernels, launches, record)
 
     print(f"[wall] chip_smoke.py {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))

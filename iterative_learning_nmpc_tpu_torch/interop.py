@@ -3,9 +3,10 @@ the same numbers. Every input is read through ``np.asarray``: pass numpy
 arrays or any array object numpy can read (this module imports no JAX).
 
 The system's "weights" are the robot spec, the cost weights, the OCP
-parameters, the warm-start state (X, U, lam_eq, lam_ineq), and for the
-closed loop the plant's contact parameters and state and the controller's
-warm start. Tensors go to ``device``, by default the CUDA card.
+parameters, the warm-start state (X, U, lam_eq, lam_ineq), for the closed
+loop the plant's contact parameters and state and the controller's warm
+start, and the learned policy's payload. Tensors go to ``device``, by
+default the CUDA card.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .learning.network import GoalConditionedPolicyNet
 from .ocp.problem import OCPParams, Weights
 from .robots.spec import _TENSOR_FIELDS, RobotSpec
 from .sim.device_sim import ContactParams, SimState
@@ -69,6 +71,38 @@ def contact_params_from_numpy(src, device=None) -> ContactParams:
 def sim_state_from_numpy(q, v, t=0.0, device=None) -> SimState:
     """Plant state (q, v, t) in the Euler chart."""
     return SimState(_t(q, device), _t(v, device), _t(t, device))
+
+
+def policy_from_numpy(payload, device=None):
+    """(net, norm) from a policy payload dict {variables (Flax layout),
+    norm_policy_input, net_config}: the GoalConditionedPolicyNet in eval
+    mode on ``device`` (Dense_i.kernel (in, out) -> Linear.weight (out, in);
+    BatchNorm_i scale, bias, mean, var -> weight, bias, running_mean,
+    running_var) and the norm stats as float32 tensors, or None."""
+    dev = resolve_device(device)
+    cfg = payload.get("net_config", {})
+    net = GoalConditionedPolicyNet(
+        input_size=cfg.get("input_size", 47),
+        output_size=cfg.get("output_size", 12),
+        num_hidden_layer=cfg.get("num_hidden_layer", 3),
+        hidden_dim=cfg.get("hidden_dim", 512),
+        batch_norm=cfg.get("batch_norm", True),
+        dropout_rate=cfg.get("dropout_rate", 0.0))
+    params = payload["variables"]["params"]
+    stats = payload["variables"].get("batch_stats", {})
+    with torch.no_grad():
+        for i, dense in enumerate(net.dense):
+            dense.weight.copy_(_t(params[f"Dense_{i}"]["kernel"], "cpu").T)
+            dense.bias.copy_(_t(params[f"Dense_{i}"]["bias"], "cpu"))
+        for i, bn in enumerate(net.norm):
+            bn.weight.copy_(_t(params[f"BatchNorm_{i}"]["scale"], "cpu"))
+            bn.bias.copy_(_t(params[f"BatchNorm_{i}"]["bias"], "cpu"))
+            bn.running_mean.copy_(_t(stats[f"BatchNorm_{i}"]["mean"], "cpu"))
+            bn.running_var.copy_(_t(stats[f"BatchNorm_{i}"]["var"], "cpu"))
+    norm = payload.get("norm_policy_input")
+    if norm is not None:
+        norm = tuple(_t(x, dev) for x in norm)
+    return net.eval().to(dev), norm
 
 
 def controller_state_from_numpy(mpc, X, U, lam_eq, lam_ineq) -> None:

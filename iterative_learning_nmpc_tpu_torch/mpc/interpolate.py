@@ -13,15 +13,17 @@ import torch
 def hermite_interp(t_knots: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
                    t_query: torch.Tensor) -> torch.Tensor:
     """Cubic Hermite interpolation: knots (K,) strictly increasing, values
-    and derivatives (K, D), queries (T,) clipped into the knot range ->
-    (T, D)."""
+    and derivatives (..., K, D) with any leading batch dims (one per
+    environment; the knots are shared), queries (T,) clipped into the knot
+    range -> (..., T, D)."""
     K = t_knots.shape[0]
     tq = torch.clamp(t_query, t_knots[0], t_knots[-1])
     idx = torch.clamp(torch.searchsorted(t_knots, tq, right=True) - 1, 0, K - 2)
     t0, t1 = t_knots[idx], t_knots[idx + 1]
     h = torch.clamp_min(t1 - t0, 1e-9)
     s = ((tq - t0) / h)[:, None]
-    y0, y1, d0, d1 = y[idx], y[idx + 1], dy[idx], dy[idx + 1]
+    y0, y1 = y[..., idx, :], y[..., idx + 1, :]
+    d0, d1 = dy[..., idx, :], dy[..., idx + 1, :]
     h00 = (1 + 2 * s) * (1 - s) ** 2
     h10 = s * (1 - s) ** 2
     h01 = s * s * (3 - 2 * s)

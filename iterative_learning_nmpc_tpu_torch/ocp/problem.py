@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models import dynamics as dyn
 from ..mpc.config import MPCCostConfig, MPCOptConfig
 from ..robots.spec import RobotSpec
@@ -100,7 +101,9 @@ class Weights:
 
 def make_weights(opt: MPCOptConfig, cost: MPCCostConfig,
                  spec: Optional[RobotSpec] = None, device=None) -> Weights:
-    """fp32 weights, computed in numpy exactly as the JAX package does."""
+    """fp32 weights, computed in numpy exactly as the JAX package does, on
+    ``device`` (by default the CUDA card)."""
+    device = resolve_device(device)
     npd = np.float32
     sq = lambda w: np.sqrt(np.asarray(w, dtype=npd))
     total_w = (0.0 if spec is None
@@ -153,7 +156,9 @@ def dynamics_step(x: torch.Tensor, u: torch.Tensor, dt: torch.Tensor) -> torch.T
 
 
 def dynamics_matrices(dt: float, dtype=torch.float32, device=None):
-    """Constant (A, B) of the linear shooting dynamics."""
+    """Constant (A, B) of the linear shooting dynamics, on ``device`` (by
+    default the CUDA card)."""
+    device = resolve_device(device)
     eye18 = np.eye(18, dtype=np.float32)
     z = np.zeros((18, 18), np.float32)
     A = np.block([[eye18, dt * eye18], [z, eye18]])

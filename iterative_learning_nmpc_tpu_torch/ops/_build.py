@@ -38,6 +38,7 @@ SIGNATURES = {
     "riccati_rollout_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P],
     "dynjac_launch": [_P, _P, _P, _P, _P, _P, _I, _P],
+    "policy_pd_launch": [_P] * 13 + [_I] * 6 + [_F, _F, _P],
 }
 
 

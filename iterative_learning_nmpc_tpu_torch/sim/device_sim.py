@@ -8,7 +8,8 @@ dims; the plant runs on the device its state lies on.
 Contact model: compliant sphere-plane contact at the four feet, a
 spring-damper normal force and regularised Coulomb friction. Integration:
 semi-implicit Euler, two sub-steps per 1 kHz control step, torques held
-across them.
+across them. ``make_batched_policy_rollout`` serves a learned policy to a
+batch of environments on the plant.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device import resolve_device
+from ..learning.network import ServedPolicy
+from ..learning.obs import policy_state
 from ..models import dynamics as dyn
 from ..robots.spec import RobotSpec
 
@@ -58,29 +61,39 @@ class SimState(NamedTuple):
     t: torch.Tensor   # (...)
 
 
+def _per_foot(x):
+    """A per-environment parameter (a float, a scalar tensor or a tensor of
+    the state's leading dims) broadcast over the four feet."""
+    return x[..., None] if isinstance(x, torch.Tensor) and x.dim() > 0 else x
+
+
 def contact_forces(spec: RobotSpec, q, v, cp: ContactParams,
-                   ground_height: float = 0.0) -> torch.Tensor:
-    """(..., 4, 3) world contact forces at the feet."""
+                   ground_height=0.0) -> torch.Tensor:
+    """(..., 4, 3) world contact forces at the feet. The contact parameters
+    and the ground height are scalars or per-environment tensors of the
+    state's leading dims."""
     p = dyn.foot_positions(spec, q)                  # foot centres
     vel = dyn.foot_velocities(spec, q, v)
-    depth = (ground_height + spec.foot_radius) - p[..., 2]
-    fz = torch.where(depth > 0.0, cp.stiffness * depth - cp.damping * vel[..., 2],
-                     torch.zeros_like(depth))
+    k, c, mu, vs = (_per_foot(x) for x in (cp.stiffness, cp.damping, cp.friction_mu,
+                                           cp.vel_smoothing))
+    depth = (_per_foot(ground_height) + spec.foot_radius) - p[..., 2]
+    fz = torch.where(depth > 0.0, k * depth - c * vel[..., 2], torch.zeros_like(depth))
     fz = torch.clamp_min(fz, 0.0)
     vt = vel[..., :2]
-    vt_norm = torch.sqrt((vt * vt).sum(-1) + cp.vel_smoothing ** 2)
-    ft = -cp.friction_mu * fz[..., None] * vt / vt_norm[..., None]
+    vt_norm = torch.sqrt((vt * vt).sum(-1) + vs ** 2)
+    ft = (-mu * fz)[..., None] * vt / vt_norm[..., None]
     return torch.cat([ft, fz[..., None]], dim=-1)
 
 
 def step(spec: RobotSpec, state: SimState, tau_joints, cp: ContactParams,
          dt: float = 1.0e-3, f_ext: Optional[torch.Tensor] = None,
-         substeps: int = 2, ground_height: float = 0.0) -> SimState:
+         substeps: int = 2, ground_height=0.0) -> SimState:
     """One control step: joint torques clipped to the limits and held over
     ``substeps`` semi-implicit Euler sub-steps; ``f_ext`` (..., 3) is an
     optional world force on the base, mapped onto the prismatic coordinates.
     Penalty contact at quadruped stiffness needs the sub-steps to stay free
-    of chatter."""
+    of chatter. ``cp`` and ``ground_height`` may be per environment, as in
+    contact_forces."""
     tau = torch.clamp(tau_joints, -spec.torque_limit, spec.torque_limit)
     h = dt / substeps
     q, v, t = state
@@ -112,3 +125,38 @@ def pd_rollout(spec: RobotSpec, q0, v0, pd_targets, kp: float = 20.0,
         Q.append(state.q)
         V.append(state.v)
     return torch.stack(Q), torch.stack(V)
+
+
+def make_batched_policy_rollout(spec: RobotSpec, policy, T: int, kp: float = 20.0,
+                                kd: float = 1.5, dt: float = 1.0e-3, device=None):
+    """Batched rollout of a learned policy on the plant (the JAX package's
+    ``jax_sim.make_batched_policy_rollout``).
+
+    ``policy``: ``load_policy``'s (net, norm) pair. Each step: observation
+    (phase 0) -> normalised input -> ``policy_pd`` (PD targets and the
+    torque kp (target - q_j) - kd v_j in one kernel on a CUDA device) ->
+    plant step. Returns fn(q0 (B, 18), v0 (B, 18), v_des
+    (B, 3)) -> (Q (B, T, 18), V (B, T, 18), fell (B,)): the states after each
+    step and whether the base went below 0.15 m or tilted beyond 0.6 rad.
+    Runs on ``device``, by default the CUDA card."""
+    dev = resolve_device(device)
+    spec = spec.to(dev)
+    served = ServedPolicy(*policy, device=dev)
+    cp = contact_params_for(spec, device=dev)
+
+    def fn(q0, v0, v_des):
+        q0, v0, v_des = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                         for x in (q0, v0, v_des))
+        B = q0.shape[0]
+        state = SimState(q0, v0, torch.zeros(B, device=dev))
+        Q = torch.empty(B, T, 18, device=dev)
+        V = torch.empty(B, T, 18, device=dev)
+        for k in range(T):
+            s44 = policy_state(spec, state.q, state.v)
+            _, tau = served(s44, v_des, state.q[:, 6:], state.v[:, 6:], kp, kd)
+            state = step(spec, state, tau, cp, dt)
+            Q[:, k], V[:, k] = state.q, state.v
+        fell = (Q[..., 2] < 0.15).any(1) | (Q[..., 4:6].abs() > 0.6).any(2).any(1)
+        return Q, V, fell
+
+    return fn

@@ -8,7 +8,8 @@ no JAX, so it also runs on a GPU machine without JAX:
 Inputs: the golden converged flagship trajectory (Go2 trot, N=25) for
 B=3 problems, with the initial state moved by 1 cm-scale noise (lingram:
 gradient blocks far from zero) or the interior states by 5e-4 (riccati: a
-well-conditioned fp32 step, as in the steady RTI regime).
+well-conditioned fp32 step, as in the steady RTI regime); for policy_pd the
+shipped policy's folded weights and seeded normal inputs.
 """
 import os
 
@@ -20,11 +21,14 @@ from iterative_learning_nmpc_tpu_torch import flagship as F
 from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore, dyncore_plain
 from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain
 from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram, lingram_plain
+from iterative_learning_nmpc_tpu_torch.ops.policy_pd import (
+    fold_batchnorm, policy_pd, policy_pd_plain)
 from iterative_learning_nmpc_tpu_torch.ops.riccati import (
     riccati_rollout, riccati_rollout_plain)
 
-GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                      "go2_trot_n25_golden.npz")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(ROOT, "tests", "data", "go2_trot_n25_golden.npz")
+ARTIFACT = os.path.join(ROOT, "assets", "policy_go2_trot_ondevice_dagger.pkl")
 B = 3
 
 
@@ -128,3 +132,44 @@ def test_entry_points_default_to_the_card(card):
         mpc.close()
     assert device_sim.contact_params_for(spec).stiffness.is_cuda
     assert sim_state_from_numpy(np.zeros(18), np.zeros(18)).q.is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 256])
+def test_policy_pd_kernel_matches_plain(card, B):
+    """Kernel 8 at one row, a ragged tile count and the datagen batch."""
+    import pickle
+
+    with open(ARTIFACT, "rb") as f:
+        variables = pickle.load(f)["variables"]
+    dev = torch.device("cuda")
+    layers = [(torch.as_tensor(W, device=dev), torch.as_tensor(b, device=dev))
+              for W, b in fold_batchnorm(variables)]
+    gen = torch.Generator().manual_seed(B)
+    x, qj, vj = (torch.randn(B, n, generator=gen).to(dev) for n in (47, 12, 12))
+    n0 = policy_pd.launches
+    (ak, tk), (ap, tp) = policy_pd(layers, 20.0, 1.5, x, qj, vj), policy_pd_plain(
+        layers, 20.0, 1.5, x, qj, vj)
+    torch.cuda.synchronize()
+    assert policy_pd.launches == n0 + 1
+    # fp32 sums over K = 512 in another order: tests/test_policy_kernel.py's
+    # bounds, tau scaled by kp
+    torch.testing.assert_close(ak, ap, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(tk, tp, rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_policy_rollout_defaults_to_the_card(card):
+    from iterative_learning_nmpc_tpu_torch.learning.network import load_policy
+    from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec
+    from iterative_learning_nmpc_tpu_torch.sim import device_sim
+
+    net, norm = load_policy(ARTIFACT)
+    assert next(net.parameters()).is_cuda and norm[0].is_cuda
+    spec = go2_spec(device="cpu")
+    q0 = spec.q_home.numpy()[None]
+    n0 = policy_pd.launches
+    Q, V, fell = device_sim.make_batched_policy_rollout(spec, (net, norm), 3)(
+        q0, np.zeros((1, 18), np.float32), np.array([[0.3, 0.0, 0.0]], np.float32))
+    assert Q.is_cuda and V.is_cuda and fell.is_cuda and Q.shape == (1, 3, 18)
+    assert policy_pd.launches == n0 + 3

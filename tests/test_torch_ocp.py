@@ -139,13 +139,13 @@ def test_terminal_equality_ineq_match_jax(case):
 
 def test_weights_and_dynamics_step_match_jax(case):
     solver, X, U, pb, spec, w, tp = case
-    ref = tprob.make_weights(solver.opt, solver.cost, spec)
+    ref = tprob.make_weights(solver.opt, solver.cost, spec, device="cpu")
     for f in dataclasses.fields(tprob.Weights):
         # both packages compute the weights in float32 numpy: bit-equal
         np.testing.assert_array_equal(getattr(ref, f.name).numpy(),
                                       np.asarray(getattr(solver.weights, f.name)),
                                       err_msg=f.name)
-    A, B_ = tprob.dynamics_matrices(solver.dt_nodes)
+    A, B_ = tprob.dynamics_matrices(solver.dt_nodes, device="cpu")
     A0, B0 = jprob.dynamics_matrices(solver.dt_nodes)
     np.testing.assert_array_equal(A.numpy(), A0)
     np.testing.assert_array_equal(B_.numpy(), B0)
