@@ -44,7 +44,21 @@ device plant). Phases, one line each:
      (it runs after 12, whose rows it takes),
  13. SafeDAgger mode: 256 envs x 8 intervals (policy for 20 steps, the MPC
      latched >= 60 steps once engaged), then B=2 x 2 intervals against the
-     JAX golden (tests/data/go2_trot_safedagger_golden.npz).
+     JAX golden (tests/data/go2_trot_safedagger_golden.npz),
+ 14. the long-horizon route (N=100 > 88 nodes: lingram, the sweep kernel
+     with the terminal Gram, the rollout kernel, dyncore): a B=256 warm RTI
+     chain of 5 steps from the JAX golden's converged point
+     (tests/data/go2_trot_n100_golden.npz), perturbed as in phase 4, with
+     the counters set to 0 before it and read after it (the fused kernel
+     must not run); both kernels against their twins at its end state; the
+     fused kernel against the split chain on the same blocks, and both
+     timed at N = 25, 88, 100; one B=2 RTI step against the golden's,
+ 15. the riccati_mode="pallas" + linearize_mode="jacfwd" route (the jacfwd
+     Gram as torch ops, the sweep kernel from P_N, the rollout kernel,
+     dyncore): a B=256, N=25 chain of 3 steps from phase 4's perturbation,
+     counters as above (lingram and the fused kernel must not run); the
+     sweep kernel against its twin; one RTI step against the N=25 golden,
+ 16. riccati_mode="sequential" and "associative" raise NotImplementedError.
 
 It then prints one JSON line with the kernels' results (each with its
 bound: the larger of its operations over the card's fp32 rate and its
@@ -52,6 +66,7 @@ bytes over the memory rate, counted on this run's inputs) and, last, the
 result line. Any failed check exits non-zero without that line; there is
 no CPU fallback.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -74,6 +89,9 @@ MAX_FALLS = 8
 N_DATAGEN, N_DAGGER = 20, 8               # replanning intervals of 40 ms
 DELAY_STEPS, MPC_MIN_STEPS = 20, 60
 POLICY_KP, POLICY_KD = 20.0, 1.5
+# the long-horizon and jacfwd routes (phases 14-15)
+B_LONG, LONG_STEPS, CUTOVER_NS = 256, 5, (25, 88, 100)
+B_JACFWD, JACFWD_STEPS = 256, 3
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores (every
 # kernel here is fp32 scalar code), and HBM3
 PEAK_FLOPS, PEAK_BYTES = 67.0e12, 3.35e12
@@ -381,6 +399,208 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> None:
         fail("SafeDAgger B=2 disagrees with the JAX golden")
 
 
+def step_gate(gains_k, gains_p, gains64, h, defects, dx0):
+    """(max |d gains|, ok, text) of a sweep kernel's gains against its
+    twin's. fp32 gains are ill-conditioned near the end of a long horizon
+    (one ulp of noise on the GN blocks moves K by a few 1e-3 of its scale,
+    and the steps of two fp32 sweeps differ by up to 1e-2 over 256
+    problems), so both are held to the float64 twin: the step the kernel's
+    gains give (the rollout in float64) no further from the float64 step
+    than twice the fp32 twin's, plus REL_GATE / 10."""
+    from iterative_learning_nmpc_tpu_torch.ops.riccati import forward_rollout_plain
+
+    def step(g):
+        return forward_rollout_plain(h, g.double(), defects.double(), dx0.double())
+
+    ref = step(gains64)
+    r_k, r_p = (max(rel(a, b) for a, b in zip(step(g), ref)) for g in (gains_k, gains_p))
+    err = float((gains_k - gains_p).abs().max())
+    scaled = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                 for a, b in ((gains_k[..., :36], gains_p[..., :36]),
+                              (gains_k[..., 36], gains_p[..., 36])))
+    ok = r_k <= 2.0 * r_p + 0.1 * REL_GATE
+    return err, ok, (f"step rel |d(dU, dX)| to the float64 sweep's {r_k:.2e} <= 2 x the "
+                     f"fp32 twin's {r_p:.2e} + {0.1 * REL_GATE:.0e}; gains vs twin "
+                     f"{scaled:.2e} of scale")
+
+
+def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launches,
+                         record) -> None:
+    """Phases 14-16 on ``dev``: the long-horizon split route (kernels 4 and
+    5), the pallas + jacfwd route (kernels 6 and 5) and the refusals;
+    ``record`` adds the three kernels' lines (launches from 14 for kernels 4
+    and 5, from 15 for kernel 6)."""
+    import numpy as np
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch import flagship as F
+    from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram
+    from iterative_learning_nmpc_tpu_torch.ops.riccati import (
+        forward_rollout, forward_rollout_plain, riccati_rollout, riccati_sweep,
+        riccati_sweep_plain, riccati_sweep_terminal, riccati_sweep_terminal_plain,
+        terminal_gram)
+    from iterative_learning_nmpc_tpu_torch.solver.linearize import gn_blocks_jacfwd
+    from iterative_learning_nmpc_tpu_torch.solver.sqp import TrajOptSolver
+
+    def run_chain(s, X, U, p, lam_ineq, steps):
+        """``steps`` warm RTI solves from (X, U) with the counters set to 0
+        before and read after: (end state, costs, wall s, launches)."""
+        lam_eq = torch.zeros_like(p.lam_eq)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = F.rti_chain(s, X, U, lam_eq, lam_ineq, p, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, wall, {k.__name__: k.launches for k in kernels}
+
+    def step_args(s, X, U, p):
+        """The sweeps' arguments at (X, U, p): spec .. reg_e, defects, the
+        terminal inputs, dx0."""
+        return ((s.spec, s.weights, s.dt_nodes, float(s.opt.lm_reg),
+                 float(s.cost.reg_eps_e)), s._defects(X, U, p),
+                (X[:, -1], p.peak[:, :, -1], p.base_ref_e, p.joint_ref, p.step_height),
+                p.x0 - X[:, 0])
+
+    # ---- 14. the long-horizon route, N=100 ----
+    g = np.load(os.path.join(ROOT, "tests", "data", "go2_trot_n100_golden.npz"))
+    sol_l, _, _, p_l = F.flagship(device=dev, n_nodes=100)
+    if not (float(np.abs(p_l.x0[0].cpu().numpy() - g["x0"]).max()) <= 1e-6
+            and np.array_equal(p_l.cnt[0].cpu().numpy(), g["cnt"])):
+        fail("the N=100 flagship differs from the golden instance")
+    t = lambda a: torch.as_tensor(a, device=dev)
+    Xc, Uc = t(g["X_conv"])[None], t(g["U_conv"])[None]
+    Xb, Ub, pb = F.perturbed_batch(Xc, Uc, p_l, B_LONG, seed=SEED)
+    lam_ineq = t(g["lam_ineq_conv"])[None].expand_as(pb.lam_ineq).contiguous()
+    F.rti_chain(sol_l, Xb, Ub, torch.zeros_like(pb.lam_eq), lam_ineq, pb, 1)   # warm-up
+    (Xe, Ue, le, lie, costs, qpi), wall, ln = run_chain(sol_l, Xb, Ub, pb, lam_ineq,
+                                                        LONG_STEPS)
+    finite = all(bool(torch.isfinite(x).all()) for x in (Xe, Ue, le, lie, costs))
+    print(f"[long horizon] B={B_LONG} N={sol_l.N} warm RTI chain, {LONG_STEPS} steps: "
+          f"{B_LONG * LONG_STEPS / wall:.1f} solves/s ({card}; informational), mean cost "
+          f"{float(costs[-1].mean()):.3f}, mean inner passes {float(qpi.float().mean()):.3f}, "
+          f"finite {finite}, launches {ln}", flush=True)
+    if not finite or Ue.shape != (B_LONG, 100, 30):
+        fail("the long-horizon chain went non-finite or changed shape")
+    if (min(ln[k] for k in ("lingram", "riccati_sweep_terminal", "forward_rollout",
+                            "dyncore")) <= 0 or ln["riccati_rollout"] != 0):
+        fail(f"the long-horizon chain did not take the split route: {ln}")
+    launches["riccati_sweep_terminal"] = ln["riccati_sweep_terminal"]
+    launches["forward_rollout"] = ln["forward_rollout"]
+
+    pe = pb.replace(lam_eq=le, lam_ineq=lie)
+    head, d, term, dx0 = step_args(sol_l, Xe, Ue, pe)
+    h = head[2]
+    blocks = lingram(sol_l.spec, sol_l.weights, Xe, Ue, pe, sol_l.opt.torque_limit_in_qp)
+    a4 = (*head, *blocks, d, *term)
+    g_k, g_p = riccati_sweep_terminal(*a4), riccati_sweep_terminal_plain(*a4)
+    P_N, p_N = terminal_gram(head[0], head[1], head[4], *term)
+    g64 = riccati_sweep_plain(h, head[3], *(x.double() for x in (*blocks, P_N, p_N, d)))
+    err, ok, txt = step_gate(g_k, g_p, g64, h, d, dx0)
+    record("riccati_sweep_terminal", "iterative_learning_nmpc_tpu_torch/csrc/riccati.cu",
+           "iterative_learning_nmpc_tpu/ops/riccati_kernel.py:463", err, ok,
+           f"B={B_LONG}, N=100: {txt}", cuda_time_ms(lambda: riccati_sweep_terminal(*a4), 20),
+           cuda_time_ms(lambda: riccati_sweep_terminal_plain(*a4), 3),
+           riccati_sweep_terminal_plain, a4, g_k)
+    a5 = (h, g_k, d, dx0)
+    out_k, out_p = forward_rollout(*a5), forward_rollout_plain(*a5)
+    out64 = forward_rollout_plain(h, *(x.double() for x in a5[1:]))
+    r5, r5_k, r5_p = (max(rel(a, b) for a, b in zip(x, y))
+                      for x, y in ((out_k, out_p), (out_k, out64), (out_p, out64)))
+    record("forward_rollout", "iterative_learning_nmpc_tpu_torch/csrc/riccati.cu",
+           "iterative_learning_nmpc_tpu/ops/riccati_kernel.py:650",
+           max(float((a - b).abs().max()) for a, b in zip(out_k, out_p)),
+           r5 <= REL_GATE or r5_k <= 2.0 * r5_p + 0.1 * REL_GATE,
+           f"B={B_LONG}, N=100: rel |d(dU, dX)| / (1 + |plain|) {r5:.2e} <= {REL_GATE}, or "
+           f"to the float64 rollout {r5_k:.2e} <= 2 x the twin's {r5_p:.2e} + "
+           f"{0.1 * REL_GATE:.0e}",
+           cuda_time_ms(lambda: forward_rollout(*a5), 50),
+           cuda_time_ms(lambda: forward_rollout_plain(*a5), 3),
+           forward_rollout_plain, a5, out_k)
+
+    # the fused kernel against the split chain on the same blocks; both
+    # timed on the first n nodes (terminal state X[:, n]) at each n
+    for n in CUTOVER_NS:
+        dn = d[:, :n].contiguous()
+        an = (*head, *(x[:, :n].contiguous() for x in blocks), dn)
+        tn = (Xe[:, n].contiguous(), pe.peak[:, :, n].contiguous(), *term[2:])
+        fused = lambda: riccati_rollout(*an, dx0, *tn)
+        split = lambda: forward_rollout(h, riccati_sweep_terminal(*an, *tn), dn, dx0)
+        (fX, fU), (sX, sU) = fused(), split()
+        r = max(rel(sU, fU), rel(sX, fX))
+        same = bool(torch.equal(fU, sU) and torch.equal(fX, sX))
+        ms_f, ms_s = cuda_time_ms(fused, 20), cuda_time_ms(split, 20)
+        print(f"[cutover] B={B_LONG} N={n}: fused riccati_rollout {ms_f:.4f} ms, "
+              f"riccati_sweep_terminal -> forward_rollout {ms_s:.4f} ms; split vs fused "
+              f"rel {r:.2e} (<= 1e-5), bit-equal {same} ({card})", flush=True)
+        if not r <= 1e-5:
+            fail(f"the fused kernel and the split chain disagree at N={n}: {r:.2e}")
+
+    B2 = g["x0_rti"].shape[0]
+    p2 = p_l.map(lambda x: x.expand((B2,) + x.shape[1:]).contiguous())
+    p2 = p2.replace(x0=t(g["x0_rti"]), lam_ineq=t(g["lam_ineq_conv"])[None].expand(
+        B2, -1, -1).contiguous())
+    s2 = sol_l.solve(Xc.repeat(B2, 1, 1), Uc.repeat(B2, 1, 1), p2, 1)
+    du = rel(s2.U.cpu(), torch.as_tensor(g["U_rti"]))
+    print(f"[long horizon vs JAX] B={B2} N=100 RTI step from the golden's converged "
+          f"point: rel|dU| {du:.2e} (gate {REL_GATE})", flush=True)
+    if not du <= REL_GATE:
+        fail(f"the N=100 RTI step differs from the JAX golden by {du:.2e}")
+
+    # ---- 15. the pallas + jacfwd route, N=25 ----
+    opt_j = dataclasses.replace(solver.opt, linearize_mode="jacfwd", riccati_mode="pallas")
+    sol_j = TrajOptSolver(solver.spec, opt_j, solver.cost, device=dev)
+    Xb, Ub, pb = F.perturbed_batch(conv.X, conv.U, params, B_JACFWD, seed=SEED)
+    lam_ineq = conv.lam_ineq.expand_as(pb.lam_ineq).contiguous()
+    (Xe, Ue, le, lie, costs, qpi), wall, ln = run_chain(sol_j, Xb, Ub, pb, lam_ineq,
+                                                        JACFWD_STEPS)
+    finite = all(bool(torch.isfinite(x).all()) for x in (Xe, Ue, le, lie, costs))
+    print(f"[jacfwd route] B={B_JACFWD} N={sol_j.N} warm RTI chain, {JACFWD_STEPS} steps: "
+          f"{wall / JACFWD_STEPS * 1e3:.1f} ms per step ({card}; informational), mean cost "
+          f"{float(costs[-1].mean()):.3f}, mean inner passes {float(qpi.float().mean()):.3f}, "
+          f"finite {finite}, launches {ln}", flush=True)
+    if not finite:
+        fail("the jacfwd-route chain went non-finite")
+    if (min(ln[k] for k in ("riccati_sweep", "forward_rollout", "dyncore")) <= 0
+            or ln["lingram"] != 0 or ln["riccati_rollout"] != 0):
+        fail(f"the jacfwd-route chain did not take its route: {ln}")
+    launches["riccati_sweep"] = ln["riccati_sweep"]
+
+    pe = pb.replace(lam_eq=le, lam_ineq=lie)
+    head, d, term, dx0 = step_args(sol_j, Xe, Ue, pe)
+    h = head[2]
+    blocks = gn_blocks_jacfwd(sol_j.spec, sol_j.weights, Xe, Ue, pe,
+                              include_torque=sol_j.opt.torque_limit_in_qp)
+    a6 = (h, head[3], *blocks, *terminal_gram(sol_j.spec, sol_j.weights, head[4], *term), d)
+    g_k, g_p = riccati_sweep(*a6), riccati_sweep_plain(*a6)
+    g64 = riccati_sweep_plain(h, head[3], *(x.double() for x in a6[2:]))
+    err, ok, txt = step_gate(g_k, g_p, g64, h, d, dx0)
+    record("riccati_sweep", "iterative_learning_nmpc_tpu_torch/csrc/riccati.cu",
+           "iterative_learning_nmpc_tpu/ops/riccati_kernel.py:390", err, ok,
+           f"B={B_JACFWD}, N={sol_j.N}: {txt}", cuda_time_ms(lambda: riccati_sweep(*a6), 20),
+           cuda_time_ms(lambda: riccati_sweep_plain(*a6), 3), riccati_sweep_plain, a6, g_k)
+
+    Xg, Ug = (t(golden[k])[None] for k in ("X_conv", "U_conv"))
+    s1 = sol_j.solve(Xg, Ug, params.replace(lam_ineq=t(golden["lam_ineq_conv"])[None]), 1)
+    du = rel(s1.U[0].cpu(), torch.as_tensor(golden["U_rti"]))
+    print(f"[jacfwd route vs JAX] B=1 N=25 RTI step from the golden's converged point: "
+          f"rel|dU| {du:.2e} (gate {REL_GATE})", flush=True)
+    if not du <= REL_GATE:
+        fail(f"the jacfwd-route RTI step differs from the JAX golden by {du:.2e}")
+
+    # ---- 16. the modes the port has not ported ----
+    for mode in ("sequential", "associative"):
+        try:
+            TrajOptSolver(solver.spec, dataclasses.replace(solver.opt, riccati_mode=mode),
+                          solver.cost, device=dev)
+        except NotImplementedError:
+            continue
+        fail(f"riccati_mode={mode!r} did not raise NotImplementedError")
+    print("[modes] riccati_mode 'sequential' and 'associative' raise "
+          "NotImplementedError", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -401,7 +621,8 @@ def main() -> None:
     from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram, lingram_plain
     from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd
     from iterative_learning_nmpc_tpu_torch.ops.riccati import (
-        riccati_rollout, riccati_rollout_plain)
+        forward_rollout, riccati_rollout, riccati_rollout_plain, riccati_sweep,
+        riccati_sweep_terminal)
     from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec
     from iterative_learning_nmpc_tpu_torch.sim import device_sim
     from iterative_learning_nmpc_tpu_torch.solver.linearize import (
@@ -409,7 +630,8 @@ def main() -> None:
     from iterative_learning_nmpc_tpu_torch.solver.sqp import TrajOptSolver
 
     t_start = time.perf_counter()
-    kernels = (dyncore, lingram, riccati_rollout, dynjac, policy_pd)
+    kernels = (dyncore, lingram, riccati_rollout, dynjac, policy_pd,
+               riccati_sweep_terminal, forward_rollout, riccati_sweep)
 
     dev = torch.device("cuda", 0)
 
@@ -703,6 +925,10 @@ def main() -> None:
 
     # ---- 10-13. the learned-policy serving path ----
     policy_phases(dev, card, spec_d, q0, kernels, launches, record)
+
+    # ---- 14-16. the Riccati routes ----
+    riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launches,
+                         record)
 
     print(f"[wall] chip_smoke.py {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))

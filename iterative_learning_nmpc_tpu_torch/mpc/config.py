@@ -8,10 +8,21 @@ GaitConfig / MPCOptConfig / MPCCostConfig with invariant checks, resolved by
 GN-SQP solver (penalty weights, line-search set, Levenberg regularization).
 
 The fields are identical to ``iterative_learning_nmpc_tpu/mpc/config.py`` so
-one configuration drives both packages. The port reads neither
-``riccati_mode`` nor ``linearize_mode``: it dispatches on the device of the
-tensors (CPU tensors take the plain PyTorch twins, CUDA tensors the
-kernels in ``ops/``).
+one configuration drives both packages. The port's solver resolves
+``riccati_mode`` and ``linearize_mode`` as the JAX solver does
+(``solver/sqp.resolve_linearize``), except that "auto" means "pallas" /
+"dynjac" on every device, and it refuses the modes it has not ported:
+
+- "auto" / "dynjac" with "auto" / "pallas": the lingram (B > 1) or dynjac
+  (B = 1) kernel, then the fused Riccati + rollout kernel up to N = 88
+  nodes, or the sweep kernel and the rollout kernel above (the JAX
+  package's long-horizon split),
+- "jacfwd" / "jacrev" with "auto" / "pallas": the jacfwd Gram as torch ops,
+  the sweep kernel from the terminal Gram, then the rollout kernel,
+- "sequential", "associative" and ``enable_time_opt``: NotImplementedError.
+
+Independently of the modes, CPU tensors take the kernels' plain PyTorch
+twins and CUDA tensors the kernels in ``ops/``.
 """
 from __future__ import annotations
 
@@ -94,21 +105,18 @@ class MPCOptConfig:
     # robust set is the default.
     ls_alphas: Tuple[float, ...] = (1.0, 0.5, 0.25, 0.1)
     ls_alphas_steady: Tuple[float, ...] = (1.0, 0.25)
-    # Riccati backward sweep:
-    #   "auto"        -> "pallas" on TPU, "sequential" elsewhere
-    #   "sequential"  -> lax.scan of structured/generic steps (backward-stable)
-    #   "pallas"      -> fused whole-sweep TPU kernel for batched solves
-    #                    (ops/riccati_kernel.py; 2.6x the scan at B=256);
-    #                    unbatched solves keep the scan via custom_vmap
-    #   "associative" -> parallel-in-time log-depth scan (long horizons,
-    #                    ~1e-2 relative fp32 accuracy; exact in f64)
+    # Riccati backward sweep, as the port resolves the JAX package's modes
+    # (solver/sqp.resolve_linearize):
+    #   "auto", "pallas"            -> the CUDA sweep kernels (ops/riccati.py):
+    #                                  fused sweep + rollout up to N = 88
+    #                                  nodes, sweep then rollout above
+    #   "sequential", "associative" -> not ported: NotImplementedError
     riccati_mode: str = "auto"
     # Stage linearization:
-    #   "auto"   -> "dynjac" on TPU, "jacfwd" elsewhere
-    #   "dynjac" -> fused Pallas dynamics+Jacobian kernel
-    #               (ops/dynjac_kernel.py; ~0.1 ms vs ~36 ms at B=256, N=25)
-    #   "jacfwd" -> 66 forward tangents through the residual stack
-    #   "jacrev" -> structure-exploiting assembly with reverse-mode core
+    #   "auto", "dynjac"  -> the lingram kernel (B > 1) or the dynjac kernel
+    #                        (B = 1)
+    #   "jacfwd", "jacrev" -> the jacfwd Gram as torch ops, then the sweep
+    #                        kernel from the terminal Gram's P_N
     linearize_mode: str = "auto"
     # Penalty weights for the constraint residuals (quadratic / AL)
     w_dyn: float = 1.0e3        # centroidal dynamics consistency (6,)

@@ -35,8 +35,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "dyncore_launch": [_P, _P, _P, _P, _P, _I, _P],
     "lingram_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "riccati_rollout_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P],
+    "riccati_rollout_launch": [_P] * 16 + [_I, _I, _F, _F, _F, _P],
+    "riccati_sweep_terminal_launch": [_P] * 13 + [_I, _I, _F, _F, _F, _P],
+    "riccati_sweep_launch": [_P] * 9 + [_I, _I, _F, _F, _P],
+    "forward_rollout_launch": [_P] * 5 + [_I, _I, _F, _P],
     "dynjac_launch": [_P, _P, _P, _P, _P, _P, _I, _P],
     "policy_pd_launch": [_P] * 13 + [_I] * 6 + [_F, _F, _P],
 }

@@ -7,13 +7,20 @@ non-time-optimal path. One SQP iteration of a batch of B problems:
   2. Gauss-Newton blocks of every (problem, node)      -> ops.lingram, or for
      a single problem (B = 1, the controller's replan) the JAX package's
      unbatched route: linearize.lingram_structured    -> ops.dynjac,
-  3. terminal Gram, Riccati sweep, alpha=1 rollout     -> ops.riccati_rollout,
+  3. terminal Gram, Riccati sweep, alpha=1 rollout     -> ops.riccati_rollout
+     (N <= 88), or ops.riccati_sweep_terminal -> ops.forward_rollout
+     (N > 88, the JAX package's long-horizon split),
   4. merit of every line-search alpha + the AL dual inputs from one
      FK/RNEA pass over all candidates                  -> ops.dyncore,
   5. damped inequality-dual update.
 
+``linearize_mode="jacfwd"`` (or ``"jacrev"``) replaces steps 2-3 with the
+JAX package's route of that name under ``riccati_mode="pallas"``:
+linearize.gn_blocks_jacfwd + ops.terminal_gram, ops.riccati_sweep from the
+given P_N, then ops.forward_rollout.
+
 The B = 1 route keeps steps 3 and 4 on the same kernels as a batch: the
-riccati kernel builds in-kernel the terminal Gram that the JAX package builds
+riccati kernels build in-kernel the terminal Gram that the JAX package builds
 with ``_linearize_terminal`` + ``_riccati_solve_structured``, and dyncore
 evaluates the line search where the JAX package uses its XLA residual stack.
 
@@ -44,9 +51,16 @@ from ..ocp.problem import (
 from ..ops.dyncore import dyncore
 from ..ops.dynjac import dynjac
 from ..ops.lingram import lingram
-from ..ops.riccati import riccati_rollout
+from ..ops.riccati import (
+    FUSED_ROLLOUT_MAX_N,
+    forward_rollout,
+    riccati_rollout,
+    riccati_sweep,
+    riccati_sweep_terminal,
+    terminal_gram,
+)
 from ..robots.spec import RobotSpec
-from .linearize import cost_dual, lingram_structured
+from .linearize import cost_dual, gn_blocks_jacfwd, lingram_structured
 
 
 class SolveStats(NamedTuple):
@@ -67,6 +81,33 @@ class Solution(NamedTuple):
     r_eq: torch.Tensor       # (B, N, 18) bare equality rows at the solution
 
 
+def resolve_linearize(opt: MPCOptConfig) -> str:
+    """The solver's linearization route, "dynjac" or "jacfwd", from the
+    config's ``linearize_mode`` and ``riccati_mode`` as the JAX package's
+    solver resolves them (its ``solver/sqp.py:305-314``); raises for the
+    modes the port does not have. The Riccati route is always "pallas".
+
+    "auto" resolves to "dynjac" / "pallas" on every device: the JAX
+    package's "auto" picks by whether Pallas is available, which the port
+    does not depend on (CPU tensors take the kernels' plain twins).
+    "dynjac" linearizes with kernel 2 (a batch) or 7 (B = 1) only.
+    "jacfwd" is the JAX package's XLA route, chosen by name, and runs
+    linearize.gn_blocks_jacfwd as torch ops on every device: it is not a
+    fallback of the kernels. "jacrev" is jacfwd there too unless
+    ``solve(use_fast_linearize=True)``, which the port does not have.
+    """
+    lin, ric = opt.linearize_mode, opt.riccati_mode
+    if ric in ("sequential", "associative"):
+        raise NotImplementedError(
+            f"riccati_mode={ric!r} is not ported yet (ROADMAP Queue 1 item "
+            "12); the port has 'auto' and 'pallas'")
+    if ric not in ("auto", "pallas"):
+        raise ValueError(f"unknown riccati_mode {ric!r}")
+    if lin not in ("auto", "dynjac", "jacfwd", "jacrev"):
+        raise ValueError(f"unknown linearize_mode {lin!r}")
+    return "jacfwd" if lin in ("jacfwd", "jacrev") else "dynjac"
+
+
 def _select(mask, new, old):
     """Per-problem select: mask (B,) against tensors with leading B."""
     return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)), new, old)
@@ -83,7 +124,11 @@ class TrajOptSolver:
 
     lingram = staticmethod(lingram)
     dynjac = staticmethod(dynjac)
+    gn_blocks_jacfwd = staticmethod(gn_blocks_jacfwd)
     riccati_rollout = staticmethod(riccati_rollout)
+    riccati_sweep_terminal = staticmethod(riccati_sweep_terminal)
+    riccati_sweep = staticmethod(riccati_sweep)
+    forward_rollout = staticmethod(forward_rollout)
     dyncore = staticmethod(dyncore)
 
     def __init__(self, spec: RobotSpec, opt: MPCOptConfig, cost: MPCCostConfig,
@@ -91,6 +136,7 @@ class TrajOptSolver:
         if opt.enable_time_opt:
             raise NotImplementedError("the per-node time-optimal mode is not "
                                       "ported yet")
+        self.linearize_mode = resolve_linearize(opt)
         self.device = resolve_device(device)
         self.spec = spec.to(self.device)
         self.opt = opt
@@ -119,18 +165,28 @@ class TrajOptSolver:
         defects = self._defects(X, U, p)
         dx0 = p.x0 - X[:, 0]
         inc = self.opt.torque_limit_in_qp
+        spec, w, h = self.spec, self.weights, self.dt_nodes
+        lm, reg_e = float(self.opt.lm_reg), float(self.cost.reg_eps_e)
+        term = (X[:, -1], p.peak[:, :, -1], p.base_ref_e, p.joint_ref,
+                p.step_height)
+        if self.linearize_mode == "jacfwd":
+            blocks = self.gn_blocks_jacfwd(spec, w, X, U, p, include_torque=inc)
+            P_N, p_N = terminal_gram(spec, w, reg_e, *term)
+            gains = self.riccati_sweep(h, lm, *blocks, P_N, p_N, defects)
+            dX1, dU1 = self.forward_rollout(h, gains, defects, dx0)
+            return dX1, dU1, defects
         if X.shape[0] == 1:
-            Q, R, M, qx, ru = lingram_structured(
-                self.spec, self.weights, X, U, p, include_torque=inc,
-                dynjac_fn=self.dynjac)
+            blocks = lingram_structured(spec, w, X, U, p, include_torque=inc,
+                                        dynjac_fn=self.dynjac)
         else:
-            Q, R, M, qx, ru = self.lingram(self.spec, self.weights, X, U, p,
-                                           include_torque=inc)
-        dX1, dU1 = self.riccati_rollout(
-            self.spec, self.weights, self.dt_nodes, float(self.opt.lm_reg),
-            float(self.cost.reg_eps_e), Q, R, M, qx, ru, defects, dx0,
-            X[:, -1], p.peak[:, :, -1], p.base_ref_e, p.joint_ref,
-            p.step_height)
+            blocks = self.lingram(spec, w, X, U, p, include_torque=inc)
+        if self.N <= FUSED_ROLLOUT_MAX_N:
+            dX1, dU1 = self.riccati_rollout(spec, w, h, lm, reg_e, *blocks,
+                                            defects, dx0, *term)
+        else:
+            gains = self.riccati_sweep_terminal(spec, w, h, lm, reg_e, *blocks,
+                                                defects, *term)
+            dX1, dU1 = self.forward_rollout(h, gains, defects, dx0)
         return dX1, dU1, defects
 
     def _cost_dual(self, X, U, p: OCPParams):

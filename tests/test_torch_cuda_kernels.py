@@ -5,11 +5,12 @@ no JAX, so it also runs on a GPU machine without JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Inputs: the golden converged flagship trajectory (Go2 trot, N=25) for
-B=3 problems, with the initial state moved by 1 cm-scale noise (lingram:
-gradient blocks far from zero) or the interior states by 5e-4 (riccati: a
-well-conditioned fp32 step, as in the steady RTI regime); for policy_pd the
-shipped policy's folded weights and seeded normal inputs.
+Inputs: the golden converged flagship trajectory (Go2 trot, N=25, and
+N=100 for the long-horizon route) for B problems, with the initial state
+moved by 1 cm-scale noise (lingram: gradient blocks far from zero) or the
+interior states by 5e-4 (riccati: a well-conditioned fp32 step, as in the
+steady RTI regime); for policy_pd the shipped policy's folded weights and
+seeded normal inputs.
 """
 import os
 
@@ -24,10 +25,13 @@ from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram, lingram_plain
 from iterative_learning_nmpc_tpu_torch.ops.policy_pd import (
     fold_batchnorm, policy_pd, policy_pd_plain)
 from iterative_learning_nmpc_tpu_torch.ops.riccati import (
-    riccati_rollout, riccati_rollout_plain)
+    forward_rollout, forward_rollout_plain, riccati_rollout, riccati_rollout_plain,
+    riccati_sweep, riccati_sweep_plain, riccati_sweep_terminal,
+    riccati_sweep_terminal_plain, terminal_gram)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "data", "go2_trot_n25_golden.npz")
+GOLDEN_N100 = os.path.join(ROOT, "tests", "data", "go2_trot_n100_golden.npz")
 ARTIFACT = os.path.join(ROOT, "assets", "policy_go2_trot_ondevice_dagger.pkl")
 B = 3
 
@@ -173,3 +177,93 @@ def test_policy_rollout_defaults_to_the_card(card):
         q0, np.zeros((1, 18), np.float32), np.array([[0.3, 0.0, 0.0]], np.float32))
     assert Q.is_cuda and V.is_cuda and fell.is_cuda and Q.shape == (1, 3, 18)
     assert policy_pd.launches == n0 + 3
+
+
+@pytest.fixture(scope="module")
+def horizons(card):
+    """N -> (solver, X, U, params) at the golden converged points of N=25 and
+    N=100 (one problem)."""
+    dev = torch.device("cuda")
+    out = {25: card}
+    solver, _, _, params = F.flagship(device=dev, n_nodes=100)
+    g = np.load(GOLDEN_N100)
+    out[100] = (solver, torch.as_tensor(g["X_conv"], device=dev)[None],
+                torch.as_tensor(g["U_conv"], device=dev)[None],
+                params.replace(lam_ineq=torch.as_tensor(g["lam_ineq_conv"], device=dev)[None]))
+    return out
+
+
+def _sweep_inputs(solver, X, U, p, B, seed):
+    """B copies with the interior states moved by 5e-4: the sweeps'
+    arguments (spec, w, h, lm, reg_e, Q, R, M, qx, ru, defects), the
+    terminal inputs and dx0."""
+    gen = torch.Generator().manual_seed(seed)
+    Xb = X.repeat(B, 1, 1)
+    Xb[:, 1:] += 5e-4 * torch.randn(Xb[:, 1:].shape, generator=gen).to(X.device)
+    Ub = U.repeat(B, 1, 1)
+    pb = p.map(lambda t: t.expand((B,) + t.shape[1:]).contiguous())
+    blocks = lingram(solver.spec, solver.weights, Xb, Ub, pb)
+    args = (solver.spec, solver.weights, solver.dt_nodes, float(solver.opt.lm_reg),
+            float(solver.cost.reg_eps_e), *blocks, solver._defects(Xb, Ub, pb))
+    term = (Xb[:, -1], pb.peak[:, :, -1], pb.base_ref_e, pb.joint_ref, pb.step_height)
+    return args, term, pb.x0 - Xb[:, 0]
+
+
+def _assert_same_step(gains_k, gains_p, gains64, h, defects, dx0):
+    """fp32 gains are ill-conditioned near the end of a horizon (one ulp of
+    noise on the GN blocks moves K by a few 1e-3 of its scale, and two fp32
+    sweeps of 256 problems give steps up to 1e-2 apart): the gains within
+    1e-2 of their scale of the twin's, and the step they give (the rollout
+    in float64) no further from the float64 sweep's step than twice the
+    fp32 twin's, plus 1e-4."""
+    for a, b in ((gains_k[..., :36], gains_p[..., :36]), (gains_k[..., 36], gains_p[..., 36])):
+        assert float((a - b).abs().max()) <= 1e-2 * max(1.0, float(b.abs().max()))
+
+    def step(g):
+        return forward_rollout_plain(h, g.double(), defects.double(), dx0.double())
+
+    ref = step(gains64)
+    r_k, r_p = (max(_max_rel(a, b) for a, b in zip(step(g), ref)) for g in (gains_k, gains_p))
+    assert r_k <= 2.0 * r_p + 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 256])
+@pytest.mark.parametrize("N", [25, 100])
+def test_riccati_sweep_kernels_match_plain(horizons, N, B):
+    """Kernels 4 (terminal Gram + sweep), 6 (sweep from P_N) and 5 (rollout)
+    against their twins."""
+    solver, X, U, p = horizons[N]
+    args, term, dx0 = _sweep_inputs(solver, X, U, p, B, seed=N + B)
+    spec, w, h, lm, reg = args[:5]
+    blocks, defects = args[5:10], args[10]
+    n4, n5, n6 = (riccati_sweep_terminal.launches, forward_rollout.launches,
+                  riccati_sweep.launches)
+
+    P_N, p_N = terminal_gram(spec, w, reg, *term)
+    g64 = riccati_sweep_plain(h, lm, *(x.double() for x in (*blocks, P_N, p_N, defects)))
+    g4 = riccati_sweep_terminal(*args, *term)
+    assert g4.shape == (B, N, 30, 37)
+    _assert_same_step(g4, riccati_sweep_terminal_plain(*args, *term), g64, h, defects, dx0)
+    g6 = riccati_sweep(h, lm, *blocks, P_N, p_N, defects)
+    _assert_same_step(g6, riccati_sweep_plain(h, lm, *blocks, P_N, p_N, defects), g64, h,
+                      defects, dx0)
+
+    for a, b in zip(forward_rollout(h, g4, defects, dx0),
+                    forward_rollout_plain(h, g4, defects, dx0)):
+        assert _max_rel(a, b) <= 1e-3          # the bench's rel |dU| gate
+    torch.cuda.synchronize()
+    assert (riccati_sweep_terminal.launches, forward_rollout.launches,
+            riccati_sweep.launches) == (n4 + 1, n5 + 1, n6 + 1)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_equals_split_chain(horizons):
+    """Kernel 3 against kernels 4 -> 5 at N=100, B=256: the same stages of
+    csrc/riccati.cuh in the same order."""
+    solver, X, U, p = horizons[100]
+    args, term, dx0 = _sweep_inputs(solver, X, U, p, 256, seed=7)
+    fused = riccati_rollout(*args, dx0, *term)
+    split = forward_rollout(args[2], riccati_sweep_terminal(*args, *term), args[10], dx0)
+    for a, b in zip(split, fused):
+        assert _max_rel(a, b) <= 1e-5
