@@ -58,11 +58,25 @@ device plant). Phases, one line each:
      dyncore): a B=256, N=25 chain of 3 steps from phase 4's perturbation,
      counters as above (lingram and the fused kernel must not run); the
      sweep kernel against its twin; one RTI step against the N=25 golden,
- 16. riccati_mode="sequential" and "associative" raise NotImplementedError.
+ 16. riccati_mode="sequential" and "associative" raise NotImplementedError,
+ 17. the bf16 policy (make_fused_policy_pd with compute_dtype=bfloat16, on
+     the tensor cores) on phase 10's observations at B = 256, 1000 and 4096,
+     counters set to 0 before the three calls: against its plain twin
+     (one bf16 ulp of the output scale) and the fp32 kernel (2^-5 of it),
+     timed beside the fp32 kernel and the addmm chains on cuBLAS,
+ 18. the card's ceilings: fma_chain against its twin, then its fp32 FMA rate
+     at full size (counters as above), and the HBM rate of x + 1.0 over 1 GiB,
+ 19. one Riccati node's factorize-and-solve under three thread mappings (a
+     block, a warp, a thread per node) on the reference probe's blocks at
+     B=1024, N=25, counters as above: each within 1e-5 of the twin and of
+     the block mapping, timed there and at B=256.
 
 It then prints one JSON line with the kernels' results (each with its
-bound: the larger of its operations over the card's fp32 rate and its
-bytes over the memory rate, counted on this run's inputs) and, last, the
+bound: the larger of its operations over the card's fp32 rate, bf16
+tensor-core work over the dense bf16 rate, and its bytes over the memory
+rate, counted on this run's inputs; ``bound_measured_ms``, the same counts
+over the ceilings of phase 18; for kernels 2, 3 and 6 ``bound_algo_ms``,
+the hand count of the minimal work over the same bytes) and, last, the
 result line. Any failed check exits non-zero without that line; there is
 no CPU fallback.
 """
@@ -93,8 +107,13 @@ POLICY_KP, POLICY_KD = 20.0, 1.5
 B_LONG, LONG_STEPS, CUTOVER_NS = 256, 5, (25, 88, 100)
 B_JACFWD, JACFWD_STEPS = 256, 3
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores (every
-# kernel here is fp32 scalar code), and HBM3
-PEAK_FLOPS, PEAK_BYTES = 67.0e12, 3.35e12
+# kernel here but policy_pd_bf16 is fp32 scalar code), dense bf16 on the
+# tensor cores (policy_pd_bf16's layers 2-4), and HBM3
+PEAK_FLOPS, PEAK_TC_FLOPS, PEAK_BYTES = 67.0e12, 989.0e12, 3.35e12
+# the probes (phases 17-19): the bf16 policy at the fp32 policy's batches,
+# the node solve at the reference probe's batch and at the sweep's
+BF16_ULP = 2.0 ** -8
+NODE_B, NODE_N, NODE_B_SWEEP, NODE_REL = 1024, 25, 256, 1e-5
 
 
 def fail(msg: str) -> None:
@@ -104,20 +123,6 @@ def fail(msg: str) -> None:
 
 def rel(a, b) -> float:
     return float(((a - b).abs() / (1.0 + b.abs())).max())
-
-
-def cuda_time_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def tensors_of(obj, out=None):
@@ -189,21 +194,33 @@ def op_counter():
     return OpCount()
 
 
+def distinct_bytes(tensors) -> int:
+    """Each distinct tensor's bytes, once."""
+    seen, nbytes = set(), 0
+    for t in tensors:
+        if t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            nbytes += t.numel() * t.element_size()
+    return nbytes
+
+
+def bound_of(flops, tc_flops, nbytes, peak_flops=PEAK_FLOPS, peak_bytes=PEAK_BYTES):
+    """(bound_ms, bound_by): the larger of the operations' time (fp32 flops
+    at peak_flops plus bf16 tensor-core flops at PEAK_TC_FLOPS) and the
+    bytes' time at peak_bytes."""
+    t_ops = (flops / peak_flops + tc_flops / PEAK_TC_FLOPS) * 1e3
+    t_bytes = nbytes / peak_bytes * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def bound(plain_fn, args, out):
     """(bound_ms, bound_by, flops, bytes) of the function at these inputs:
     its operations counted on one call of the plain twin, its bytes each
     distinct input tensor read once and each output written once."""
     with op_counter() as oc:
         plain_fn(*args)
-    seen, nbytes = set(), 0
-    for t in tensors_of(args) + tensors_of(out):
-        if t.data_ptr() not in seen:
-            seen.add(t.data_ptr())
-            nbytes += t.numel() * t.element_size()
-    t_ops = oc.flops / PEAK_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            oc.flops, nbytes)
+    nbytes = distinct_bytes(tensors_of(args) + tensors_of(out))
+    return (*bound_of(oc.flops, 0.0, nbytes), oc.flops, nbytes)
 
 
 def standing_state(spec):
@@ -226,11 +243,13 @@ class PlantData:
     time, qpos, qvel = 0.0, None, None
 
 
-def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> None:
+def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
     """Phases 10-13 on ``dev``: the shipped policy served to B_ENV
     environments by the policy rollout, the expert datagen and its SafeDAgger
     mode; ``record`` adds policy_pd's line to the kernels' results (its
-    launches are the policy rollout's)."""
+    launches are the policy rollout's). Returns phase 10's policy_pd
+    arguments by batch (the datagen's observations), which phase 17 serves
+    again."""
     import numpy as np
     import torch
 
@@ -238,6 +257,7 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> None:
     from iterative_learning_nmpc_tpu_torch.learning.ondevice import make_batched_mpc_rollout
     from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd, policy_pd_plain
     from iterative_learning_nmpc_tpu_torch.sim import device_sim
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
 
     net, norm = load_policy(os.path.join(ROOT, "assets", ARTIFACT), device=dev)
     served = ServedPolicy(net, norm, device=dev)
@@ -397,6 +417,7 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> None:
     if not (same and errs["q1"] <= 5e-3 and errs["v1"] <= 0.1 and errs["a1"] <= 5e-2
             and errs["q"] <= 5e-2 and errs["a"] <= 0.15):
         fail("SafeDAgger B=2 disagrees with the JAX golden")
+    return {nb: r[4] for nb, r in pp_results.items()}
 
 
 def step_gate(gains_k, gains_p, gains64, h, defects, dx0):
@@ -435,12 +456,14 @@ def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launc
 
     from iterative_learning_nmpc_tpu_torch import flagship as F
     from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram
+    from iterative_learning_nmpc_tpu_torch.ops.probes import algo_flops_riccati
     from iterative_learning_nmpc_tpu_torch.ops.riccati import (
         forward_rollout, forward_rollout_plain, riccati_rollout, riccati_sweep,
         riccati_sweep_plain, riccati_sweep_terminal, riccati_sweep_terminal_plain,
         terminal_gram)
     from iterative_learning_nmpc_tpu_torch.solver.linearize import gn_blocks_jacfwd
     from iterative_learning_nmpc_tpu_torch.solver.sqp import TrajOptSolver
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
 
     def run_chain(s, X, U, p, lam_ineq, steps):
         """``steps`` warm RTI solves from (X, U) with the counters set to 0
@@ -579,7 +602,8 @@ def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launc
     record("riccati_sweep", "iterative_learning_nmpc_tpu_torch/csrc/riccati.cu",
            "iterative_learning_nmpc_tpu/ops/riccati_kernel.py:390", err, ok,
            f"B={B_JACFWD}, N={sol_j.N}: {txt}", cuda_time_ms(lambda: riccati_sweep(*a6), 20),
-           cuda_time_ms(lambda: riccati_sweep_plain(*a6), 3), riccati_sweep_plain, a6, g_k)
+           cuda_time_ms(lambda: riccati_sweep_plain(*a6), 3), riccati_sweep_plain, a6, g_k,
+           algo_flops=algo_flops_riccati(B_JACFWD, sol_j.N, rollout=False))
 
     Xg, Ug = (t(golden[k])[None] for k in ("X_conv", "U_conv"))
     s1 = sol_j.solve(Xg, Ug, params.replace(lam_ineq=t(golden["lam_ineq_conv"])[None]), 1)
@@ -601,6 +625,192 @@ def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launc
           "NotImplementedError", flush=True)
 
 
+def policy_bf16_phase(dev, card, pp_args, kernels, record) -> float:
+    """Phase 17: the policy served through make_fused_policy_pd with
+    compute_dtype=bfloat16 (kernel 8b) on phase 10's observations at
+    B = 256, 1000 (a ragged tile) and 4096, counters set to 0 before the
+    three calls: each against its plain twin and against the fp32 kernel,
+    and timed beside the fp32 kernel and the addmm chains on cuBLAS.
+    Returns the fp32 addmm chain's ms at B_ENV (kernel 8's yardstick)."""
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch.ops.policy_pd import (
+        bf16_layers, make_fused_policy_pd, policy_pd, policy_pd_bf16, policy_pd_bf16_plain,
+        policy_pd_plain)
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
+
+    layers = pp_args[B_ENV][0]                    # the served fp32 layers, on dev
+    fn = make_fused_policy_pd(layers, POLICY_KP, POLICY_KD, compute_dtype=torch.bfloat16,
+                              device=dev)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    outs = {nb: fn(*a[3:]) for nb, a in pp_args.items()}
+    torch.cuda.synchronize()
+    n_launch = policy_pd_bf16.launches
+    if n_launch != len(pp_args):
+        fail(f"the bf16 factory launched policy_pd_bf16 {n_launch} times for "
+             f"{len(pp_args)} calls")
+    bl = bf16_layers(layers, dev)
+    w4 = bl[3][0][:, :bl[3][1].shape[0]].contiguous()
+
+    def cublas_bf16(x, qj, vj):
+        """The bf16 addmm chain on cuBLAS: layer 1 in fp32, layers 2-4 bf16
+        in and out (cuBLAS sums in fp32), the PD step in fp32."""
+        h = torch.relu(torch.addmm(bl[0][1], x, bl[0][0])).to(torch.bfloat16)
+        for (W, b), relu in ((bl[1], True), (bl[2], True), ((w4, bl[3][1]), False)):
+            h = torch.addmm(b.to(torch.bfloat16), h, W)
+            h = torch.relu(h) if relu else h
+        a = h.float()
+        return a, POLICY_KP * (a - qj) - POLICY_KD * vj
+
+    rows = {}
+    for nb, a in pp_args.items():
+        x, qj, vj = a[3:]
+        ak, tk = outs[nb]
+        ap, tp = policy_pd_bf16_plain(layers, POLICY_KP, POLICY_KD, x, qj, vj)
+        af, _ = policy_pd(layers, POLICY_KP, POLICY_KD, x, qj, vj)
+        scale = max(1.0, float(ap.abs().max()))
+        e_a, e_t = float((ak - ap).abs().max()), float((tk - tp).abs().max())
+        gap = float((ak - af).abs().max()) / scale
+        # an fp32 summation-order difference can flip one bf16 rounding of an
+        # activation at a later layer's input: one bf16 ulp of the output
+        # scale, kp times that for tau; the fp32 kernel within the three
+        # layers' bf16 roundings, 2^-5 of the output scale
+        ok = (e_a <= BF16_ULP * scale and e_t <= POLICY_KP * BF16_ULP * scale + 1e-3
+              and gap <= 2.0 ** -5)
+        ms = cuda_time_ms(lambda: fn(x, qj, vj), 50)
+        ms32 = cuda_time_ms(lambda: policy_pd(layers, POLICY_KP, POLICY_KD, x, qj, vj), 50)
+        plain_ms = cuda_time_ms(lambda: policy_pd_bf16_plain(layers, POLICY_KP, POLICY_KD,
+                                                             x, qj, vj), 20)
+        chain32 = cuda_time_ms(lambda: policy_pd_plain(layers, POLICY_KP, POLICY_KD,
+                                                       x, qj, vj), 20)
+        chain16 = cuda_time_ms(lambda: cublas_bf16(x, qj, vj), 20)
+        rows[nb] = (max(e_a, e_t), ok, ms, plain_ms, chain16, chain32, (x, qj, vj), (ak, tk))
+        print(f"[policy_pd_bf16] B={nb}: vs twin |d act| {e_a:.3e} (<= {BF16_ULP * scale:.3e}), "
+              f"|d tau| {e_t:.3e}; vs the fp32 kernel {gap:.3e} of the output scale "
+              f"(<= {2.0 ** -5:.3e}); bf16 kernel {ms:.4f} ms, fp32 kernel {ms32:.4f} ms, "
+              f"twin {plain_ms:.4f} ms, addmm chain on cuBLAS: bf16 {chain16:.4f} ms, "
+              f"fp32 {chain32:.4f} ms ({card})", flush=True)
+    err, ok, ms, plain_ms, chain16, chain32, (x, qj, vj), out = rows[B_ENV]
+    (W1, _), (W2, _), (W3, _), (W4, b4) = bl
+    B, n_in, h1, h2, h3, n_out = x.shape[0], *W1.shape, W2.shape[1], W3.shape[1], b4.shape[0]
+    work = (2.0 * B * n_in * h1, 2.0 * B * (h1 * h2 + h2 * h3 + h3 * n_out),
+            distinct_bytes([x, qj, vj, *(t for l in bl for t in l), *out]))
+    record("policy_pd_bf16", "iterative_learning_nmpc_tpu_torch/csrc/policy_pd_bf16.cu",
+           "iterative_learning_nmpc_tpu/ops/policy_kernel.py:65", max(r[0] for r in rows.values()),
+           all(r[1] for r in rows.values()),
+           "|d act| <= 2^-8 max(1, |act|), |d tau| <= kp 2^-8 max(1, |act|) + 1e-3 against the "
+           "twin, |d act| <= 2^-5 max(1, |act|) against the fp32 kernel, at B = "
+           + ", ".join(map(str, rows)), ms, plain_ms, None, None, out, n_launch=n_launch,
+           work=work, extra=dict(library_chain_ms=chain16))
+    return chain32
+
+
+def ceiling_phase(dev, card, kernels, record):
+    """Phase 18: fma_chain against its twin on a small shape, then at full
+    size (the probe's constants a = 0.999, b = 1e-6, counters set to 0
+    before its timed runs): the measured fp32 FMA rate; and the HBM rate of
+    x + 1.0 over 1 GiB. Returns (TFLOP/s, GB/s)."""
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch.ops import probes
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
+
+    gen = torch.Generator().manual_seed(SEED)
+    a_s = (0.5 + 0.5 * torch.rand(132 * 256, generator=gen)).to(dev)
+    b_s = (0.05 + 0.85 * torch.rand(132 * 256, generator=gen)).to(dev)
+    it, nacc = probes.FMA_ITERS, probes.FMA_NACC
+    a = torch.full((probes.FMA_N,), 0.999, device=dev)
+    b = torch.full((probes.FMA_N,), 1e-6, device=dev)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    ms = min(cuda_time_ms(lambda: probes.fma_chain(a, b, it, nacc), 10) for _ in range(3))
+    n_launch = probes.fma_chain.launches
+    out = probes.fma_chain(a, b, it, nacc)
+    ref = probes.fma_chain_plain(a, b, it, nacc)
+    small = probes.fma_chain(a_s, b_s, 64, nacc)
+    ref_s = probes.fma_chain_plain(a_s, b_s, 64, nacc)
+    # one rounding per FMA against two per step in the twin; |b| < 1 damps
+    # the difference: 1e-5 of the value
+    rel_f = float(((out - ref).abs() / ref.abs()).max())
+    rel_s = float(((small - ref_s).abs() / ref_s.abs()).max())
+    plain_ms = cuda_time_ms(lambda: probes.fma_chain_plain(a, b, it, nacc), 1)
+    flops = probes.fma_chain_flops(probes.FMA_N, it, nacc)
+    tf = flops / (ms * 1e-3) / 1e12
+    x = torch.ones(256 * 1024 * 1024, device=dev)     # 1 GiB of fp32
+    t_bw = min(cuda_time_ms(lambda: x + 1.0, 10) for _ in range(3))
+    bw = 2.0 * x.numel() * 4 / (t_bw * 1e-3) / 1e9
+    del x
+    print(f"[ceilings] fp32 FMA {tf:.3f} TFLOP/s ({ms:.4f} ms for {flops:.4e} flop, n "
+          f"{probes.FMA_N}, {it} steps x {nacc} chains; {tf / (PEAK_FLOPS / 1e12):.4f} of the "
+          f"nominal 67), HBM {bw:.1f} GB/s (x + 1.0 over 1 GiB: {t_bw:.4f} ms; "
+          f"{bw / (PEAK_BYTES / 1e9):.4f} of the nominal 3350) ({card})", flush=True)
+    record("fma_chain", "iterative_learning_nmpc_tpu_torch/csrc/probes.cu",
+           "scripts/roofline.py:133", max(float((out - ref).abs().max()),
+                                          float((small - ref_s).abs().max())),
+           rel_f <= 1e-5 and rel_s <= 1e-5,
+           f"rel {rel_s:.2e} at n = {a_s.numel()}, 64 steps (random a, b), {rel_f:.2e} at full "
+           f"size, <= 1e-5", ms, plain_ms, None, None, out, n_launch=n_launch,
+           work=(flops, 0.0, 12 * probes.FMA_N))
+    return tf, bw
+
+
+def node_solve_phase(dev, card, kernels, record) -> None:
+    """Phase 19: the node solve's three thread mappings on the reference
+    probe's blocks at B=1024, N=25, counters set to 0 before the three calls:
+    each against node_solve_plain and the block mapping, then timed there and
+    at B=256 (the sweep's batch)."""
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch.ops import probes
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
+
+    def case(B):
+        blocks = probes.reference_node_blocks(B, NODE_N, SEED, dev)
+        laid = [probes.lay_batch_inner(t, t.dim() - 2) for t in blocks]
+        return blocks, {"block": lambda: probes.node_solve_block(*blocks),
+                        "warp": lambda: probes.node_solve_warp(*blocks),
+                        "thread": lambda: probes.node_solve_thread(*laid)}
+
+    blocks, calls = case(NODE_B)
+    fns = {m: getattr(probes, f"node_solve_{m}") for m in calls}
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    outs = {m: c() for m, c in calls.items()}
+    torch.cuda.synchronize()
+    n_launch = {m: f.launches for m, f in fns.items()}
+    outs["thread"] = [probes.unlay_batch_inner(o, (NODE_B, NODE_N)) for o in outs["thread"]]
+    ref = probes.node_solve_plain(*blocks)
+    rel = lambda xs, ys: max(float((x - y).abs().max()) / float(y.abs().max())
+                             for x, y in zip(xs, ys))
+    M = NODE_B * NODE_N
+    work = (probes.node_solve_flops(M), 0.0, probes.node_solve_bytes(M))
+    plain_ms = cuda_time_ms(lambda: probes.node_solve_plain(*blocks), 5)
+    times = {m: cuda_time_ms(c, 20) for m, c in calls.items()}
+    _, calls_s = case(NODE_B_SWEEP)
+    times_s = {m: cuda_time_ms(c, 20) for m, c in calls_s.items()}
+    for m, out in outs.items():
+        r_p, r_b = rel(out, ref), rel(out, outs["block"])
+        print(f"[node solve] {m}: B={NODE_B} N={NODE_N} {times[m]:.4f} ms "
+              f"({M / times[m] * 1e3:.1f} node-solves/s, {times['block'] / times[m]:.3f}x the "
+              f"block mapping), B={NODE_B_SWEEP} {times_s[m]:.4f} ms "
+              f"({NODE_B_SWEEP * NODE_N / times_s[m] * 1e3:.1f} node-solves/s); rel to the twin "
+              f"{r_p:.2e}, to the block mapping {r_b:.2e} (<= {NODE_REL:.0e}) ({card})",
+              flush=True)
+        err = max(float((x - y).abs().max()) for x, y in zip(out, ref))
+        record(f"node_solve_{m}", "iterative_learning_nmpc_tpu_torch/csrc/probes.cu",
+               "scripts/proto_sublane_riccati.py:70" if m == "block"
+               else "scripts/proto_sublane_riccati.py:179", err,
+               r_p <= NODE_REL and r_b <= NODE_REL,
+               f"max |d| / max |twin| per output {r_p:.2e} <= {NODE_REL:.0e} (Quu = G G^T + 3 I)",
+               times[m], plain_ms, None, None, out, n_launch=n_launch[m], work=work)
+        if n_launch[m] != 1:
+            fail(f"node_solve_{m} launched {n_launch[m]} times for one call")
+
+
 def main() -> None:
     import torch
 
@@ -619,7 +829,10 @@ def main() -> None:
     from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore, dyncore_plain
     from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain
     from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram, lingram_plain
-    from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd
+    from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd, policy_pd_bf16
+    from iterative_learning_nmpc_tpu_torch.ops.probes import (
+        algo_flops_lingram, algo_flops_riccati, fma_chain, node_solve_block, node_solve_thread,
+        node_solve_warp)
     from iterative_learning_nmpc_tpu_torch.ops.riccati import (
         forward_rollout, riccati_rollout, riccati_rollout_plain, riccati_sweep,
         riccati_sweep_terminal)
@@ -628,10 +841,12 @@ def main() -> None:
     from iterative_learning_nmpc_tpu_torch.solver.linearize import (
         cost_dual, dyncore_inputs, lingram_structured)
     from iterative_learning_nmpc_tpu_torch.solver.sqp import TrajOptSolver
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
 
     t_start = time.perf_counter()
     kernels = (dyncore, lingram, riccati_rollout, dynjac, policy_pd,
-               riccati_sweep_terminal, forward_rollout, riccati_sweep)
+               riccati_sweep_terminal, forward_rollout, riccati_sweep, policy_pd_bf16,
+               fma_chain, node_solve_block, node_solve_warp, node_solve_thread)
 
     dev = torch.device("cuda", 0)
 
@@ -704,18 +919,33 @@ def main() -> None:
     # ---- 5. each kernel against its plain twin, at the chain's shapes ----
     pe = pb.replace(lam_eq=le, lam_ineq=lie)
     spec, w = solver.spec, solver.weights
-    results = []
+    results, counts = [], {}
 
     def record(name, src, replaces, err, ok, tol, ms, plain_ms, plain_fn, args, out,
-               n_launch=None):
-        b_ms, b_by, flops, nbytes = bound(plain_fn, args, out)
+               n_launch=None, work=None, algo_flops=None, extra=None):
+        """Add a kernel's line. Its bound counts the plain twin's operations
+        on these inputs, or ``work`` = (fp32 flops, bf16 tensor-core flops,
+        bytes) where the twin's operations are not the kernel's work;
+        ``algo_flops`` (a hand count of the minimal work) adds
+        bound_algo_ms over the same bytes."""
+        if work is None:
+            _, _, flops, nbytes = bound(plain_fn, args, out)
+            work = (flops, 0.0, nbytes)
+        counts[name] = work
+        b_ms, b_by = bound_of(*work)
+        entry = dict(name=name, route="cuda", source=src, replaces=replaces,
+                     launches=launches[name] if n_launch is None else n_launch,
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=None, **(extra or {}))
+        algo = ""
+        if algo_flops is not None:
+            entry["bound_algo_ms"] = bound_of(algo_flops, 0.0, work[2])[0]
+            algo = f", algorithmic bound {entry['bound_algo_ms']:.6f} ms ({algo_flops:.4e} flop)"
+        tc = f" + {work[1]:.4e} bf16 flop" if work[1] else ""
         print(f"[kernel] {name}: max_abs_err {err:.3e} ({tol}), "
               f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms by "
-              f"{b_by} ({flops:.4e} flop, {nbytes} B)", flush=True)
-        results.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=launches[name] if n_launch is None else n_launch,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=None))
+              f"{b_by} ({work[0]:.4e} flop{tc}, {work[2]} B){algo}", flush=True)
+        results.append(entry)
         if not ok:
             fail(f"{name} disagrees with its plain twin ({tol})")
 
@@ -740,7 +970,8 @@ def main() -> None:
                        zip(("Q", "R", "M", "qx", "ru"), errs, bounds)),
            cuda_time_ms(lambda: lingram(spec, w, Xb, Ub, ps, inc), 20),
            cuda_time_ms(lambda: lingram_plain(spec, w, Xb, Ub, ps, inc), 3),
-           lingram_plain, (spec, w, Xb, Ub, ps, inc), blocks_k)
+           lingram_plain, (spec, w, Xb, Ub, ps, inc), blocks_k,
+           algo_flops=algo_flops_lingram(BATCH, N))
     blocks_k = lingram(spec, w, Xe, Ue, pe, inc)
 
     defects = solver._defects(Xe, Ue, pe)
@@ -757,7 +988,7 @@ def main() -> None:
            r_ric <= REL_GATE, f"rel |d(dU, dX)| / (1 + |plain|) {r_ric:.2e} <= {REL_GATE}",
            cuda_time_ms(lambda: riccati_rollout(*ric_args), 20),
            cuda_time_ms(lambda: riccati_rollout_plain(*ric_args), 3),
-           riccati_rollout_plain, ric_args, (dX_k, dU_k))
+           riccati_rollout_plain, ric_args, (dX_k, dU_k), algo_flops=algo_flops_riccati(BATCH, N))
 
     # dyncore on the line-search candidates (alphas 1, 0.25): M = 2 * 512 * 26
     alphas = torch.tensor(solver.opt.ls_alphas_steady, device=dev)
@@ -924,11 +1155,22 @@ def main() -> None:
         fail(f"first plan rel|dU| {du:.2e} > {REL_GATE}")
 
     # ---- 10-13. the learned-policy serving path ----
-    policy_phases(dev, card, spec_d, q0, kernels, launches, record)
+    pp_args = policy_phases(dev, card, spec_d, q0, kernels, launches, record)
 
     # ---- 14-16. the Riccati routes ----
     riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launches,
                          record)
+    # ---- 17-19. the bf16 policy, the card's ceilings, the node solve ----
+    chain32 = policy_bf16_phase(dev, card, pp_args, kernels, record)
+    next(r for r in results if r["name"] == "policy_pd")["library_chain_ms"] = chain32
+    tf, bw = ceiling_phase(dev, card, kernels, record)
+    node_solve_phase(dev, card, kernels, record)
+    for r in results:
+        r["bound_measured_ms"] = bound_of(*counts[r["name"]], peak_flops=tf * 1e12,
+                                          peak_bytes=bw * 1e9)[0]
+    print("[measured bounds] over the measured fp32 FMA and HBM ceilings (bf16 tensor-core "
+          "work at the nominal 989 TFLOP/s): " + ", ".join(
+              f"{r['name']} {r['bound_measured_ms']:.6f} ms" for r in results), flush=True)
 
     print(f"[wall] chip_smoke.py {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))

@@ -4,7 +4,9 @@
 //   ric_terminal_gram  the terminal value function (P_N, p_N) from the
 //                      q-only dual FK of the terminal state,
 //   ric_node           one backward node: the Q-function blocks, the 30x30
-//                      Cholesky, [K | kff] to global memory, P and p updated,
+//                      Cholesky, [K | kff] to global memory, P and p updated
+//                      (its second half, ric_factor_solve, is the
+//                      factorize-and-solve alone),
 //   ric_rollout        the alpha = 1 affine rollout over [K | kff].
 //
 // Math: iterative_learning_nmpc_tpu/solver/sqp.py _riccati_solve_structured
@@ -76,58 +78,13 @@ __device__ inline void ric_terminal_gram(const float* Cs, const float* xN, const
   __syncthreads();
 }
 
-// One backward node from (s.P, s.pv): Q (36x36), R (30x30), M (36x30),
-// qx (36), ru (30), d (36) of this node; writes G = [K | kff] (30 x 37,
-// row-major) and leaves the node's (P, p) in s.P, s.pv.
-__device__ inline void ric_node(const float* Q, const float* R, const float* M,
-                                const float* qx, const float* ru, const float* d, float* G,
-                                float h, float lm, RicSmem& s, int tid, int nt) {
-  const float hh = 0.5f * h * h;
-  for (int i = tid; i < NX; i += nt) {
-    float v = s.pv[i];
-    for (int j = 0; j < NX; ++j) v += s.P[i][j] * d[j];
-    s.Pd[i] = v;
-  }
-  __syncthreads();
-  // PA(r, c) = (P A)[r][c]
-  auto PA = [&](int r, int c) { return c < 18 ? s.P[r][c] : h * s.P[r][c - 18] + s.P[r][c]; };
-  // Qxx = Q + A^T P A, symmetrized
-  for (int e = tid; e < NX * NX; e += nt) {
-    const int i = e / NX, j = e % NX;
-    const float aij = i < 18 ? PA(i, j) : h * PA(i - 18, j) + PA(i, j);
-    const float aji = j < 18 ? PA(j, i) : h * PA(j - 18, i) + PA(j, i);
-    s.Qxx[i][j] = 0.5f * ((Q[i * NX + j] + aij) + (Q[j * NX + i] + aji));
-  }
-  for (int i = tid; i < NX; i += nt)
-    s.qxp[i] = qx[i] + (i < 18 ? s.Pd[i] : h * s.Pd[i - 18] + s.Pd[i]);
-  // Quu = R + lm I + B^T P B (acceleration block)
-  for (int e = tid; e < NU * NU; e += nt) {
-    const int i = e / NU, j = e % NU;
-    float val = R[e] + (i == j ? lm : 0.f);
-    if (i < 18 && j < 18) {
-      // (B^T P B)[i][j] = hh * PB_a[i][j] + h * PB_a[18+i][j],
-      // PB_a[r][c] = hh * P[r][c] + h * P[r][18+c]
-      const float pb_i = hh * s.P[i][j] + h * s.P[i][18 + j];
-      const float pb_vi = hh * s.P[18 + i][j] + h * s.P[18 + i][18 + j];
-      val += hh * pb_i + h * pb_vi;
-    }
-    s.L[i][j] = val;
-  }
-  // [Qux | qu]: Qux = M^T + B^T P A, qu = ru + B^T (P d + p)
-  for (int e = tid; e < NU * NW; e += nt) {
-    const int i = e / NW, j = e % NW;
-    float val;
-    if (j < NX) {
-      val = M[j * NU + i];
-      if (i < 18) val += hh * PA(i, j) + h * PA(18 + i, j);
-    } else {
-      val = ru[i];
-      if (i < 18) val += hh * s.Pd[i] + h * s.Pd[18 + i];
-    }
-    s.Wm[i][j] = val;
-  }
-  __syncthreads();
-
+// The node's factorize-and-solve, from the Q-function blocks in shared
+// memory (s.L = Quu, s.Wm = [Qux | qu], s.Qxx, s.qxp, visible to every
+// thread): Cholesky Quu = L L^T, W = L^{-1} [Qux | qu], Z = L^{-T} W;
+// writes G = [K | kff] = -Z (30 x 37, row-major) and leaves
+// P = Qxx - W_x^T W_x, p = qxp - W_x^T w_f in s.P, s.pv. The stage of
+// ric_node after it forms the blocks; ops/probes.py times it alone.
+__device__ inline void ric_factor_solve(RicSmem& s, float* G, int tid, int nt) {
   // Cholesky Quu = L L^T in place (lower triangle), pivot floor 1e-30
   for (int k = 0; k < NU; ++k) {
     if (tid == 0) {
@@ -179,6 +136,60 @@ __device__ inline void ric_node(const float* Q, const float* R, const float* M,
     s.pv[i] = s.qxp[i] - v;
   }
   __syncthreads();
+}
+
+// One backward node from (s.P, s.pv): Q (36x36), R (30x30), M (36x30),
+// qx (36), ru (30), d (36) of this node; writes G = [K | kff] (30 x 37,
+// row-major) and leaves the node's (P, p) in s.P, s.pv.
+__device__ inline void ric_node(const float* Q, const float* R, const float* M,
+                                const float* qx, const float* ru, const float* d, float* G,
+                                float h, float lm, RicSmem& s, int tid, int nt) {
+  const float hh = 0.5f * h * h;
+  for (int i = tid; i < NX; i += nt) {
+    float v = s.pv[i];
+    for (int j = 0; j < NX; ++j) v += s.P[i][j] * d[j];
+    s.Pd[i] = v;
+  }
+  __syncthreads();
+  // PA(r, c) = (P A)[r][c]
+  auto PA = [&](int r, int c) { return c < 18 ? s.P[r][c] : h * s.P[r][c - 18] + s.P[r][c]; };
+  // Qxx = Q + A^T P A, symmetrized
+  for (int e = tid; e < NX * NX; e += nt) {
+    const int i = e / NX, j = e % NX;
+    const float aij = i < 18 ? PA(i, j) : h * PA(i - 18, j) + PA(i, j);
+    const float aji = j < 18 ? PA(j, i) : h * PA(j - 18, i) + PA(j, i);
+    s.Qxx[i][j] = 0.5f * ((Q[i * NX + j] + aij) + (Q[j * NX + i] + aji));
+  }
+  for (int i = tid; i < NX; i += nt)
+    s.qxp[i] = qx[i] + (i < 18 ? s.Pd[i] : h * s.Pd[i - 18] + s.Pd[i]);
+  // Quu = R + lm I + B^T P B (acceleration block)
+  for (int e = tid; e < NU * NU; e += nt) {
+    const int i = e / NU, j = e % NU;
+    float val = R[e] + (i == j ? lm : 0.f);
+    if (i < 18 && j < 18) {
+      // (B^T P B)[i][j] = hh * PB_a[i][j] + h * PB_a[18+i][j],
+      // PB_a[r][c] = hh * P[r][c] + h * P[r][18+c]
+      const float pb_i = hh * s.P[i][j] + h * s.P[i][18 + j];
+      const float pb_vi = hh * s.P[18 + i][j] + h * s.P[18 + i][18 + j];
+      val += hh * pb_i + h * pb_vi;
+    }
+    s.L[i][j] = val;
+  }
+  // [Qux | qu]: Qux = M^T + B^T P A, qu = ru + B^T (P d + p)
+  for (int e = tid; e < NU * NW; e += nt) {
+    const int i = e / NW, j = e % NW;
+    float val;
+    if (j < NX) {
+      val = M[j * NU + i];
+      if (i < 18) val += hh * PA(i, j) + h * PA(18 + i, j);
+    } else {
+      val = ru[i];
+      if (i < 18) val += hh * s.Pd[i] + h * s.Pd[18 + i];
+    }
+    s.Wm[i][j] = val;
+  }
+  __syncthreads();
+  ric_factor_solve(s, G, tid, nt);
 }
 
 // alpha = 1 affine rollout of one problem over its gains G (N x 30 x 37),

@@ -1,12 +1,14 @@
 """The learned policy's fused serving step: BatchNorm-folded MLP + joint PD
-torque for a batch of environments. CUDA kernel ``csrc/policy_pd.cu`` and
-its plain PyTorch twin.
+torque for a batch of environments. CUDA kernels ``csrc/policy_pd.cu``
+(fp32) and ``csrc/policy_pd_bf16.cu`` (bf16 products on the tensor cores),
+each with its plain PyTorch twin, and the factory that picks one.
 
 Replaces the JAX package's ``ops/policy_kernel.py:make_fused_policy_pd``
-(``_policy_pd_kernel``, fp32). CPU tensors take ``policy_pd_plain``; CUDA
-tensors launch the kernel or raise. ``layers`` is the list of folded
-``(W (d_in, d_out), b (d_out,))`` float32 tensors from ``fold_batchnorm``;
-the kernel takes exactly four (three hidden layers), as the TPU kernel.
+(``_policy_pd_kernel``, fp32 and ``compute_dtype=jnp.bfloat16``). CPU
+tensors take the twins; CUDA tensors launch the kernels or raise.
+``layers`` is the list of folded ``(W (d_in, d_out), b (d_out,))`` tensors
+from ``fold_batchnorm``; the kernels take exactly four (three hidden
+layers), as the TPU kernel.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from . import _build
 from .dyncore import _check
 
@@ -99,3 +102,118 @@ def policy_pd(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: float,
 
 
 policy_pd.launches = 0
+
+
+def policy_pd_bf16_plain(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: float,
+                         kd: float, x: torch.Tensor, qj: torch.Tensor, vj: torch.Tensor):
+    """The bf16 policy step in fp32 arithmetic: layer 1 an fp32 addmm; layers
+    2-4 multiply bf16-rounded inputs by bf16-rounded weights,
+    ``h.to(bfloat16).float() @ W.to(bfloat16).float() + b``, in fp32 (the
+    product of two bf16 values is exact in fp32, so only the order of the
+    fp32 sums differs from the kernel). Layer l's width is its bias's: the
+    factory's W4 carries zero columns past it. Same contract as
+    policy_pd_plain."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    W1, b1 = layers[0]
+    h = torch.relu(torch.addmm(b1.to(f32), x, W1.to(f32)))
+    for i, (W, b) in enumerate(layers[1:], start=1):
+        W = W.to(bf16).to(f32)[:, :b.shape[0]]
+        h = h.to(bf16).to(f32) @ W + b.to(f32)
+        if i < len(layers) - 1:
+            h = torch.relu(h)
+    return h, kp * (h - qj) - kd * vj
+
+
+def policy_pd_bf16(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: float,
+                   kd: float, x: torch.Tensor, qj: torch.Tensor, vj: torch.Tensor):
+    """The bf16 policy step on the tensor cores; same contract as
+    policy_pd_bf16_plain. ``layers`` as ``bf16_layers`` makes them: W1, every
+    bias float32; W2 (h1, h2), W3 (h2, h3) bfloat16 with h1, h2, h3 multiples
+    of 16; W4 (h3, 16) bfloat16, zero past the n_out = len(b4) <= 16
+    columns."""
+    if x.device.type == "cpu":
+        return policy_pd_bf16_plain(layers, kp, kd, x, qj, vj)
+    if x.device.type != "cuda":
+        raise ValueError(f"policy_pd_bf16: unsupported device {x.device}")
+    if len(layers) != 4:
+        raise ValueError(f"policy_pd_bf16: the kernel takes 4 layers, got {len(layers)}")
+    (W1, b1), (W2, b2), (W3, b3), (W4, b4) = layers
+    B, n_in = x.shape
+    h1, h2, h3, n4, n_out = (int(W1.shape[1]), int(W2.shape[1]), int(W3.shape[1]),
+                             int(W4.shape[1]), int(b4.shape[0]))
+    if any(h % 16 for h in (h1, h2, h3)) or n4 != 16 or not 0 < n_out <= 16:
+        raise ValueError(f"policy_pd_bf16: hidden widths must be multiples of 16 and W4 "
+                         f"16 columns wide for n_out <= 16, got {(h1, h2, h3, n4, n_out)}")
+    x, qj, vj = x.contiguous(), qj.contiguous(), vj.contiguous()
+    _check("policy_pd_bf16", "x", x, (B, n_in))
+    _check("policy_pd_bf16", "qj", qj, (B, n_out))
+    _check("policy_pd_bf16", "vj", vj, (B, n_out))
+    _check("policy_pd_bf16", "W1", W1, (n_in, h1))
+    for i, (W, shape) in enumerate(((W2, (h1, h2)), (W3, (h2, h3)), (W4, (h3, 16))), start=2):
+        if W.dtype != torch.bfloat16 or not W.is_contiguous() or tuple(W.shape) != shape:
+            raise ValueError(f"policy_pd_bf16: W{i} must be contiguous bfloat16 {shape}, "
+                             f"got {W.dtype} {tuple(W.shape)}")
+    for i, (b, d) in enumerate(((b1, h1), (b2, h2), (b3, h3), (b4, n_out)), start=1):
+        _check("policy_pd_bf16", f"b{i}", b, (d,))
+    tensors = (qj, vj, W1, b1, W2, b2, W3, b3, W4, b4)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("policy_pd_bf16: every tensor must lie on x's device")
+    if any(t.data_ptr() % 16 for t in (W1, b1, W2, W3, W4)):
+        raise ValueError("policy_pd_bf16: W1, b1 and W2-W4 must be 16-byte aligned")
+    act = torch.empty(B, n_out, dtype=torch.float32, device=x.device)
+    tau = torch.empty(B, n_out, dtype=torch.float32, device=x.device)
+    if B == 0:
+        return act, tau
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _build.library().policy_pd_bf16_launch(
+        x.data_ptr(), qj.data_ptr(), vj.data_ptr(), *[t.data_ptr() for l in layers for t in l],
+        act.data_ptr(), tau.data_ptr(), B, n_in, h1, h2, h3, n4, n_out, float(kp), float(kd),
+        stream)
+    _build.check(err, "policy_pd_bf16_launch")
+    policy_pd_bf16.launches += 1
+    return act, tau
+
+
+policy_pd_bf16.launches = 0
+
+
+def _f32(a, dev) -> torch.Tensor:
+    """A numpy array or tensor as a contiguous float32 tensor on dev."""
+    return torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+
+
+def bf16_layers(layers, device=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The bf16 kernel's weights from folded fp32 layers: W1 and every bias
+    float32; W2-W4 rounded to bfloat16 once (round to nearest even, as the
+    TPU kernel's ``w_ref[:].astype(bfloat16)``), W4 padded to 16 zero
+    columns."""
+    dev = resolve_device(device)
+    out = []
+    for i, (W, b) in enumerate(layers):
+        W, b = _f32(W, dev), _f32(b, dev)
+        if i > 0:
+            W = W.to(torch.bfloat16)
+        if i == len(layers) - 1 and W.shape[1] < 16:
+            W = torch.nn.functional.pad(W, (0, 16 - W.shape[1])).contiguous()
+        out.append((W, b))
+    return out
+
+
+def make_fused_policy_pd(layers, kp: float, kd: float, compute_dtype=torch.float32,
+                         device=None):
+    """The policy step as one function, the counterpart of the JAX factory
+    ``make_fused_policy_pd``: ``fn(x (B, n_in), qj, vj (B, n_out)) -> (act,
+    tau)``. ``compute_dtype`` float32 serves through ``policy_pd``;
+    bfloat16 through ``policy_pd_bf16`` (layer 1 in fp32, layers 2-4 with
+    bf16 inputs and fp32 sums), with its weights rounded here once.
+    ``layers``: folded (W, b) pairs (numpy or tensors); the weights go to
+    ``device`` (the CUDA card unless named)."""
+    if compute_dtype == torch.float32:
+        dev = resolve_device(device)
+        ls = [(_f32(W, dev), _f32(b, dev)) for W, b in layers]
+        return lambda x, qj, vj: policy_pd(ls, kp, kd, x, qj, vj)
+    if compute_dtype == torch.bfloat16:
+        ls = bf16_layers(layers, device)
+        return lambda x, qj, vj: policy_pd_bf16(ls, kp, kd, x, qj, vj)
+    raise ValueError(f"make_fused_policy_pd: compute_dtype must be torch.float32 or "
+                     f"torch.bfloat16, got {compute_dtype}")

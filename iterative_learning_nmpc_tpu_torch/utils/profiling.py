@@ -73,3 +73,18 @@ def summarize_timings(timings: Dict[str, List[float]]) -> Dict[str, Dict[str, fl
                          max_ms=float(rest.max()), first_ms=float(values[0]),
                          calls=len(values))
     return out
+
+
+def cuda_time_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn`` on the current CUDA card: one warm-up
+    call, then ``reps`` calls between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

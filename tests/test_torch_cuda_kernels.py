@@ -9,8 +9,9 @@ Inputs: the golden converged flagship trajectory (Go2 trot, N=25, and
 N=100 for the long-horizon route) for B problems, with the initial state
 moved by 1 cm-scale noise (lingram: gradient blocks far from zero) or the
 interior states by 5e-4 (riccati: a well-conditioned fp32 step, as in the
-steady RTI regime); for policy_pd the shipped policy's folded weights and
-seeded normal inputs.
+steady RTI regime); for policy_pd and policy_pd_bf16 the shipped policy's
+folded weights and seeded normal inputs; for the node solves the random
+blocks of scripts/proto_sublane_riccati.py (Quu = G G^T + 3 I).
 """
 import os
 
@@ -22,8 +23,10 @@ from iterative_learning_nmpc_tpu_torch import flagship as F
 from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore, dyncore_plain
 from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain
 from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram, lingram_plain
+from iterative_learning_nmpc_tpu_torch.ops import probes
 from iterative_learning_nmpc_tpu_torch.ops.policy_pd import (
-    fold_batchnorm, policy_pd, policy_pd_plain)
+    fold_batchnorm, make_fused_policy_pd, policy_pd, policy_pd_bf16, policy_pd_bf16_plain,
+    policy_pd_plain)
 from iterative_learning_nmpc_tpu_torch.ops.riccati import (
     forward_rollout, forward_rollout_plain, riccati_rollout, riccati_rollout_plain,
     riccati_sweep, riccati_sweep_plain, riccati_sweep_terminal,
@@ -138,17 +141,20 @@ def test_entry_points_default_to_the_card(card):
     assert sim_state_from_numpy(np.zeros(18), np.zeros(18)).q.is_cuda
 
 
+def _shipped_layers():
+    import pickle
+
+    with open(ARTIFACT, "rb") as f:
+        return fold_batchnorm(pickle.load(f)["variables"])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 33, 256])
 def test_policy_pd_kernel_matches_plain(card, B):
     """Kernel 8 at one row, a ragged tile count and the datagen batch."""
-    import pickle
-
-    with open(ARTIFACT, "rb") as f:
-        variables = pickle.load(f)["variables"]
     dev = torch.device("cuda")
     layers = [(torch.as_tensor(W, device=dev), torch.as_tensor(b, device=dev))
-              for W, b in fold_batchnorm(variables)]
+              for W, b in _shipped_layers()]
     gen = torch.Generator().manual_seed(B)
     x, qj, vj = (torch.randn(B, n, generator=gen).to(dev) for n in (47, 12, 12))
     n0 = policy_pd.launches
@@ -267,3 +273,70 @@ def test_fused_kernel_equals_split_chain(horizons):
     split = forward_rollout(args[2], riccati_sweep_terminal(*args, *term), args[10], dx0)
     for a, b in zip(split, fused):
         assert _max_rel(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 256, 1000])
+def test_policy_pd_bf16_kernel_matches_plain(card, B):
+    """Kernel 8b (bf16 products on the tensor cores) at one row, ragged tiles
+    and the datagen batch, through the factory."""
+    dev = torch.device("cuda")
+    layers = _shipped_layers()
+    fn = make_fused_policy_pd(layers, 20.0, 1.5, compute_dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator().manual_seed(B)
+    x, qj, vj = (torch.randn(B, n, generator=gen).to(dev) for n in (47, 12, 12))
+    n0 = policy_pd_bf16.launches
+    ak, tk = fn(x, qj, vj)
+    torch.cuda.synchronize()
+    assert policy_pd_bf16.launches == n0 + 1
+    fp32 = [(torch.as_tensor(W, device=dev), torch.as_tensor(b, device=dev)) for W, b in layers]
+    ap, tp = policy_pd_bf16_plain(fp32, 20.0, 1.5, x, qj, vj)
+    af, _ = policy_pd_plain(fp32, 20.0, 1.5, x, qj, vj)
+    scale = max(1.0, float(ap.abs().max()))
+    # the fp32 sums run in another order, which can flip one bf16 rounding at
+    # a later layer's input: one bf16 ulp (2^-8) of the output scale
+    assert float((ak - ap).abs().max()) <= 2.0 ** -8 * scale
+    assert float((tk - tp).abs().max()) <= 20.0 * 2.0 ** -8 * scale + 1e-3
+    # against fp32 serving: the bf16 roundings of three layers, 2^-5 of scale
+    assert float((ak - af).abs().max()) <= 2.0 ** -5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nacc", [1, 4, 8])
+def test_fma_chain_kernel_matches_plain(card, nacc):
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(nacc)
+    a = (0.5 + 0.5 * torch.rand(132 * 256, generator=gen)).to(dev)
+    b = (0.05 + 0.85 * torch.rand(132 * 256, generator=gen)).to(dev)
+    n0 = probes.fma_chain.launches
+    out = probes.fma_chain(a, b, 64, nacc)
+    torch.cuda.synchronize()
+    assert probes.fma_chain.launches == n0 + 1
+    # one rounding per FMA against two per step in the twin; |b| < 1 damps
+    # the difference, so 1e-5 of the value
+    ref = probes.fma_chain_plain(a, b, 64, nacc)
+    assert float(((out - ref).abs() / ref.abs()).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mapping", ["block", "warp", "thread"])
+def test_node_solve_kernels_match_plain(card, mapping):
+    """The three thread mappings of the node solve against the twin, at a
+    ragged count of nodes (B=7, N=5)."""
+    B, N = 7, 5
+    args = probes.reference_node_blocks(B, N, 0, torch.device("cuda"))
+    fn = getattr(probes, f"node_solve_{mapping}")
+    n0 = fn.launches
+    if mapping == "thread":
+        lay = [probes.lay_batch_inner(a, a.dim() - 2) for a in args]
+        out = [probes.unlay_batch_inner(o, (B, N)) for o in fn(*lay)]
+    else:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    ref = probes.node_solve_plain(*args)
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        # Quu is well conditioned (eigenvalues in [3, ~14]): fp32 sums in
+        # another order, 1e-5 of each output's scale
+        assert float((o - r).abs().max()) <= 1e-5 * float(r.abs().max())
