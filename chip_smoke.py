@@ -19,7 +19,10 @@ device plant). Phases, one line each:
   4. the main path: a B=512 warm RTI chain with dual carry-over, with the
      kernels' launch counters set to 0 before it and read after it,
   5. each kernel against its plain twin at the chain's shapes (lingram at
-     its first step, the others at its end state), timed with CUDA events,
+     its first step, the others at its end state), timed with CUDA events;
+     lingram per block and per part of each block, with every row group on
+     and with each row group alone (ops/lingram.gram_gate), and its line also carries its
+     three kernels' registers and local bytes (cudaFuncGetAttributes),
   6. one RTI step of the kernel path against the plain path on the card,
   7. dynjac against its plain twin at the controller's shape (M=25) and at
      M=512*25, and one B=1 RTI step through the dynjac route and through
@@ -50,7 +53,9 @@ device plant). Phases, one line each:
      chain of 5 steps from the JAX golden's converged point
      (tests/data/go2_trot_n100_golden.npz), perturbed as in phase 4, with
      the counters set to 0 before it and read after it (the fused kernel
-     must not run); both kernels against their twins at its end state; the
+     must not run); lingram against its twin at the chain's first step
+     (as in phase 5), timed; both sweep kernels against
+     their twins at its end state; the
      fused kernel against the split chain on the same blocks, and both
      timed at N = 25, 88, 100; one B=2 RTI step against the golden's,
  15. the riccati_mode="pallas" + linearize_mode="jacfwd" route (the jacfwd
@@ -446,17 +451,20 @@ def step_gate(gains_k, gains_p, gains64, h, defects, dx0):
 
 
 def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launches,
-                         record) -> None:
+                         record) -> dict:
     """Phases 14-16 on ``dev``: the long-horizon split route (kernels 4 and
     5), the pallas + jacfwd route (kernels 6 and 5) and the refusals;
     ``record`` adds the three kernels' lines (launches from 14 for kernels 4
-    and 5, from 15 for kernel 6)."""
+    and 5, from 15 for kernel 6). Returns lingram's numbers at N=100 for
+    its line."""
     import numpy as np
     import torch
 
     from iterative_learning_nmpc_tpu_torch import flagship as F
-    from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram
-    from iterative_learning_nmpc_tpu_torch.ops.probes import algo_flops_riccati
+    from iterative_learning_nmpc_tpu_torch.ops.lingram import (
+        gate_failures, gate_summary, gram_gate, lingram, lingram_plain)
+    from iterative_learning_nmpc_tpu_torch.ops.probes import (
+        algo_flops_lingram, algo_flops_riccati)
     from iterative_learning_nmpc_tpu_torch.ops.riccati import (
         forward_rollout, forward_rollout_plain, riccati_rollout, riccati_sweep,
         riccati_sweep_plain, riccati_sweep_terminal, riccati_sweep_terminal_plain,
@@ -496,6 +504,27 @@ def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launc
     Xc, Uc = t(g["X_conv"])[None], t(g["U_conv"])[None]
     Xb, Ub, pb = F.perturbed_batch(Xc, Uc, p_l, B_LONG, seed=SEED)
     lam_ineq = t(g["lam_ineq_conv"])[None].expand_as(pb.lam_ineq).contiguous()
+    # lingram at the chain's first step, as phase 5 holds it at N=25
+    la = (sol_l.spec, sol_l.weights, Xb, Ub,
+          pb.replace(lam_eq=torch.zeros_like(pb.lam_eq), lam_ineq=lam_ineq),
+          sol_l.opt.torque_limit_in_qp)
+    blocks_k = lingram(*la)
+    gate = gram_gate(lingram, *la)
+    ms_l, plain_l = cuda_time_ms(lambda: lingram(*la), 20), cuda_time_ms(
+        lambda: lingram_plain(*la), 3)
+    b_l, by_l, fl_l, nb_l = bound(lingram_plain, la, blocks_k)
+    n100 = dict(max_abs_err_n100=max(r[1] for r in gate["all"]), ms_n100=ms_l,
+                plain_ms_n100=plain_l, bound_ms_n100=b_l, bound_algo_ms_n100=bound_of(
+                    algo_flops_lingram(B_LONG, sol_l.N), 0.0, nb_l)[0])
+    print(f"[lingram N=100] B={B_LONG} N={sol_l.N}: {ms_l:.4f} ms vs plain {plain_l:.4f} ms, "
+          f"bound {b_l:.6f} ms by {by_l} ({fl_l:.4e} flop, {nb_l} B), algorithmic bound "
+          f"{n100['bound_algo_ms_n100']:.6f} ms; per block <= 3e-4 * max(1, |block|): "
+          + ", ".join(f"{r[0]} {r[1]:.2e}/{r[2]:.2e}" for r in gate["all"][:5])
+          + "; per part, worst err/bound with all groups and each alone: " + gate_summary(gate)
+          + "; outside: " + (", ".join(gate_failures(gate)) or "none") + f" ({card})",
+          flush=True)
+    if gate_failures(gate):
+        fail("lingram disagrees with its plain twin at B=256, N=100")
     F.rti_chain(sol_l, Xb, Ub, torch.zeros_like(pb.lam_eq), lam_ineq, pb, 1)   # warm-up
     (Xe, Ue, le, lie, costs, qpi), wall, ln = run_chain(sol_l, Xb, Ub, pb, lam_ineq,
                                                         LONG_STEPS)
@@ -623,6 +652,7 @@ def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launc
         fail(f"riccati_mode={mode!r} did not raise NotImplementedError")
     print("[modes] riccati_mode 'sequential' and 'associative' raise "
           "NotImplementedError", flush=True)
+    return n100
 
 
 def policy_bf16_phase(dev, card, pp_args, kernels, record) -> float:
@@ -828,7 +858,8 @@ def main() -> None:
     from iterative_learning_nmpc_tpu_torch.ops import _build
     from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore, dyncore_plain
     from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain
-    from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram, lingram_plain
+    from iterative_learning_nmpc_tpu_torch.ops.lingram import (
+        gate_failures, gate_summary, gram_gate, kernel_attributes, lingram, lingram_plain)
     from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd, policy_pd_bf16
     from iterative_learning_nmpc_tpu_torch.ops.probes import (
         algo_flops_lingram, algo_flops_riccati, fma_chain, node_solve_block, node_solve_thread,
@@ -958,20 +989,26 @@ def main() -> None:
     # the riccati and full-step checks below
     ps = pb.replace(lam_eq=lam_eq, lam_ineq=lam_ineq)
     blocks_k = lingram(spec, w, Xb, Ub, ps, inc)
-    blocks_p = lingram_plain(spec, w, Xb, Ub, ps, inc)
-    # per block the bound of tests/test_fast_linearize.py: 3e-4 * max(1, |block|)
-    errs = [float((a - b).abs().max()) for a, b in zip(blocks_k, blocks_p)]
-    bounds = [3e-4 * max(1.0, float(b.abs().max())) for b in blocks_p]
+    # tests/test_fast_linearize.py's bound, 3e-4 * max(1, |part|), per part of
+    # each block, with every row group on and with each row group alone; a
+    # part may instead be no further from the float64 twin than twice the
+    # fp32 twin (ops/lingram.gram_gate); the whole blocks meet the bound
+    gate = gram_gate(lingram, spec, w, Xb, Ub, ps, inc)
+    attrs = kernel_attributes()
+    print("[lingram] registers and local bytes (stack and spills) a thread: "
+          + "; ".join(f"{k} {r}, {lb} B" for k, (r, lb) in attrs.items()), flush=True)
     record("lingram", "iterative_learning_nmpc_tpu_torch/csrc/lingram.cu",
-           "iterative_learning_nmpc_tpu/ops/dynjac_kernel.py:698", max(errs),
-           all(e <= b for e, b in zip(errs, bounds)),
+           "iterative_learning_nmpc_tpu/ops/dynjac_kernel.py:698",
+           max(r[1] for r in gate["all"]), not gate_failures(gate),
            "per block <= 3e-4 * max(1, |block|): "
-           + ", ".join(f"{n} {e:.2e}/{b:.2e}" for n, e, b in
-                       zip(("Q", "R", "M", "qx", "ru"), errs, bounds)),
+           + ", ".join(f"{r[0]} {r[1]:.2e}/{r[2]:.2e}" for r in gate["all"][:5])
+           + "; per part, worst err/bound with all groups and each alone: "
+           + gate_summary(gate) + "; outside: " + (", ".join(gate_failures(gate)) or "none"),
            cuda_time_ms(lambda: lingram(spec, w, Xb, Ub, ps, inc), 20),
            cuda_time_ms(lambda: lingram_plain(spec, w, Xb, Ub, ps, inc), 3),
            lingram_plain, (spec, w, Xb, Ub, ps, inc), blocks_k,
-           algo_flops=algo_flops_lingram(BATCH, N))
+           algo_flops=algo_flops_lingram(BATCH, N),
+           extra=dict(kernel_attributes=attrs))
     blocks_k = lingram(spec, w, Xe, Ue, pe, inc)
 
     defects = solver._defects(Xe, Ue, pe)
@@ -1158,8 +1195,9 @@ def main() -> None:
     pp_args = policy_phases(dev, card, spec_d, q0, kernels, launches, record)
 
     # ---- 14-16. the Riccati routes ----
-    riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launches,
-                         record)
+    n100 = riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launches,
+                                record)
+    next(r for r in results if r["name"] == "lingram").update(n100)
     # ---- 17-19. the bf16 policy, the card's ceilings, the node solve ----
     chain32 = policy_bf16_phase(dev, card, pp_args, kernels, record)
     next(r for r in results if r["name"] == "policy_pd")["library_chain_ms"] = chain32

@@ -181,10 +181,11 @@ __device__ void feet_positions(const float* C, const S* q, S* p_feet) {
 // ---- FK + foot velocities + RNEA -------------------------------------------
 // q, v, a: 18 each; fe: 12 world foot forces (already contact-masked).
 // Outputs p_feet 12, v_feet 12, tau 18 (base force 3, Euler-chart base
-// moment 3, joints 12).
+// moment 3, joints 12). ``grav`` = 0 with v = 0 and fe = 0 turns the pass
+// into one column of the mass matrix per unit acceleration.
 template <class S>
 __device__ void body_pass(const float* C, const S* q, const S* v, const S* a, const S* fe,
-                          S* p_feet, S* v_feet, S* tau) {
+                          S* p_feet, S* v_feet, S* tau, float grav = LEG_GRAVITY) {
   const S cy = s_cos(q[3]), sy = s_sin(q[3]);
   const S cp = s_cos(q[4]), sp = s_sin(q[4]);
   const S cr = s_cos(q[5]), sr = s_sin(q[5]);
@@ -208,7 +209,7 @@ __device__ void body_pass(const float* C, const S* q, const S* v, const S* a, co
   mv3(R_b, wl_dot, dw_b);  // d/dt (R_b w_l) = R_b wl_dot (R_b' w_l = R_b (w_l x w_l) = 0)
   const S p_b[3] = {q[0], q[1], q[2]};
   const S v_b[3] = {v[0], v[1], v[2]};
-  const S dv_b[3] = {a[0], a[1], a[2] + LEG_GRAVITY};  // gravity as base acceleration
+  const S dv_b[3] = {a[0], a[1], a[2] + grav};  // gravity as base acceleration
 
   S F_legs[3] = {z0, z0, z0}, M_legs[3] = {z0, z0, z0};
 #pragma unroll 1

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -31,10 +32,12 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points: every pointer, and the stream, as c_void_p
+# C entry points, each returning an int: every pointer, and the stream, as c_void_p
 SIGNATURES = {
     "dyncore_launch": [_P, _P, _P, _P, _P, _I, _P],
-    "lingram_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "lingram_launch": [_P] * 11 + [_I, _I, _P],
+    "lingram_row_floats": [],
+    "lingram_attributes": [_P],
     "riccati_rollout_launch": [_P] * 16 + [_I, _I, _F, _F, _F, _P],
     "riccati_sweep_terminal_launch": [_P] * 13 + [_I, _I, _F, _F, _F, _P],
     "riccati_sweep_launch": [_P] * 9 + [_I, _I, _F, _F, _P],
@@ -127,3 +130,27 @@ def check(err: int, name: str) -> None:
     """Raise when a C entry point reports a CUDA error (cudaGetLastError)."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def ptxas_report(src: Path) -> dict:
+    """{kernel: (registers, stack bytes, spill store bytes, spill load
+    bytes)} of one source, from ``nvcc -Xptxas -v`` with the build's flags;
+    a template instance is named ``kernel<args>``."""
+    out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+                          "-o", os.devnull], capture_output=True, text=True,
+                         check=True).stderr
+    report, name, stack = {}, None, (0, 0, 0)
+    for line in out.splitlines():
+        m = re.search(r"Function properties for _Z\d+(\w+?kernel)((?:I(?:Li\d+E)+E)?)", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2))
+            name = m.group(1) + (f"<{','.join(args)}>" if args else "")
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            stack = tuple(int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name] = (int(m.group(1)), *stack)
+            name = None
+    return report

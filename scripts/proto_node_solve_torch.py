@@ -26,7 +26,6 @@ stack and spills.
 import argparse
 import json
 import os
-import re
 import subprocess
 import sys
 
@@ -34,30 +33,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 MAPPINGS = ("block", "warp", "thread")
-
-
-def ptxas_report() -> dict:
-    """{kernel: (registers, stack bytes, spill stores, spill loads)} of
-    csrc/probes.cu, from nvcc -Xptxas -v."""
-    from iterative_learning_nmpc_tpu_torch.ops import _build
-
-    src = _build.CSRC / "probes.cu"
-    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
-                          "-o", os.devnull], capture_output=True, text=True, check=True).stderr
-    report, name = {}, None
-    for line in out.splitlines():
-        m = re.search(r"Function properties for _Z\d+(\w+?kernel)(?:ILi(\d+)E)?", line)
-        if m:
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and name:
-            stack = tuple(int(v) for v in m.groups())
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            report[name] = (int(m.group(1)), *stack)
-            name = None
-    return report
 
 
 def main() -> None:
@@ -108,7 +83,9 @@ def main() -> None:
               f"{r['speedup_over_block']:.2f}x the block mapping; rel max|d| to the twin "
               f"{r['rel_to_plain']:.2e}, to the block mapping {r['rel_to_block']:.2e}")
     if args.ptxas:
-        result["ptxas"] = ptxas_report()
+        from iterative_learning_nmpc_tpu_torch.ops import _build
+
+        result["ptxas"] = _build.ptxas_report(_build.CSRC / "probes.cu")
         for k, (regs, stack, st, ld) in result["ptxas"].items():
             print(f"{k}: {regs} registers, {stack} B stack, {st} B spill stores, "
                   f"{ld} B spill loads")

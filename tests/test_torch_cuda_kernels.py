@@ -7,12 +7,14 @@ no JAX, so it also runs on a GPU machine without JAX:
 
 Inputs: the golden converged flagship trajectory (Go2 trot, N=25, and
 N=100 for the long-horizon route) for B problems, with the initial state
-moved by 1 cm-scale noise (lingram: gradient blocks far from zero) or the
+moved by 1 cm-scale noise (lingram: gradient blocks far from zero; also
+the stress cases of tests/test_torch_lingram_structure.py) or the
 interior states by 5e-4 (riccati: a well-conditioned fp32 step, as in the
 steady RTI regime); for policy_pd and policy_pd_bf16 the shipped policy's
 folded weights and seeded normal inputs; for the node solves the random
 blocks of scripts/proto_sublane_riccati.py (Quu = G G^T + 3 I).
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -22,7 +24,8 @@ import torch
 from iterative_learning_nmpc_tpu_torch import flagship as F
 from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore, dyncore_plain
 from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain
-from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram, lingram_plain
+from iterative_learning_nmpc_tpu_torch.ops.lingram import (
+    ROW_GROUPS, gate_failures, gram_gate, lingram, lingram_plain)
 from iterative_learning_nmpc_tpu_torch.ops import probes
 from iterative_learning_nmpc_tpu_torch.ops.policy_pd import (
     fold_batchnorm, make_fused_policy_pd, policy_pd, policy_pd_bf16, policy_pd_bf16_plain,
@@ -31,6 +34,8 @@ from iterative_learning_nmpc_tpu_torch.ops.riccati import (
     forward_rollout, forward_rollout_plain, riccati_rollout, riccati_rollout_plain,
     riccati_sweep, riccati_sweep_plain, riccati_sweep_terminal,
     riccati_sweep_terminal_plain, terminal_gram)
+
+from test_torch_lingram_structure import go2_solver, stress_case
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "data", "go2_trot_n25_golden.npz")
@@ -71,15 +76,54 @@ def test_dyncore_kernel_matches_plain(card):
     assert float((out_k - out_p).abs().max()) <= 1e-5 * max(1.0, float(out_p.abs().max()))
 
 
-@pytest.mark.cuda
-def test_lingram_kernel_matches_plain(card):
+@pytest.fixture(scope="module")
+def lingram_cases(card):
+    """(solver, X, U, p) cases of the lingram kernel: the golden trajectory
+    perturbed (B=3, N=25), and tests/test_torch_lingram_structure.py's
+    stress cases (every row group active, hinges at their ties) at B=2,
+    N=100 and at B*N = 25 and 100, which leave a ragged last block in the
+    rows kernel (7 nodes a block) and the Gram kernel (2)."""
     solver, X, U, p = card
-    Xb, Ub, pb = F.perturbed_batch(X, U, p, B, seed=2)
-    for inc in (True, False):
-        for a, b in zip(lingram(solver.spec, solver.weights, Xb, Ub, pb, inc),
-                        lingram_plain(solver.spec, solver.weights, Xb, Ub, pb, inc)):
-            # tests/test_fast_linearize.py's per-block Gram bound
-            assert float((a - b).abs().max()) <= 3e-4 * max(1.0, float(b.abs().max()))
+    out = [(solver, *F.perturbed_batch(X, U, p, B, seed=2))]
+    for n_nodes, b, seed in ((100, 2, 7), (25, 1, 8), (100, 1, 9)):
+        s = go2_solver(n_nodes, device=torch.device("cuda"))
+        out.append((s, *stress_case(s, b, seed)))
+    return out
+
+
+@pytest.mark.cuda
+def test_lingram_kernel_matches_plain(lingram_cases):
+    """Per part of each block within tests/test_fast_linearize.py's Gram
+    bound, 3e-4 * max(1, |part|), with every row group on and with each row
+    group alone (ops.lingram.gram_gate), for both include_torque values."""
+    for solver, Xb, Ub, pb in lingram_cases:
+        for inc in (True, False):
+            n0 = lingram.launches
+            out = lingram(solver.spec, solver.weights, Xb, Ub, pb, inc)
+            assert lingram.launches == n0 + 1
+            assert [tuple(o.shape) for o in out] == [
+                tuple(o.shape) for o in lingram_plain(solver.spec, solver.weights, Xb, Ub, pb,
+                                                      inc)]
+            bad = gate_failures(gram_gate(lingram, solver.spec, solver.weights, Xb, Ub, pb,
+                                          inc))
+            assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", list(ROW_GROUPS))
+def test_lingram_gate_rejects_kernel_without_a_row_group(lingram_cases, group):
+    """The gate sees each row group of the kernel's output: the kernel run
+    with one group's weights at 0 (for the cone, the output of a kernel
+    whose closed-form cone blocks are zero) fails the check of that group
+    alone, at the stress case B=1, N=25."""
+    solver, Xb, Ub, pb = lingram_cases[2]
+
+    def without(spec, w, X, U, p, inc):
+        return lingram(spec, dataclasses.replace(w, **{
+            f: torch.zeros_like(getattr(w, f)) for f in ROW_GROUPS[group]}), X, U, p, inc)
+
+    assert gate_failures(gram_gate(without, solver.spec, solver.weights, Xb, Ub, pb, True,
+                                   labels=(group,)))
 
 
 @pytest.mark.cuda
