@@ -42,9 +42,12 @@ device plant). Phases, one line each:
  12. on-device expert datagen: 256 envs x 20 replanning intervals (0.8 s),
      counters set to 0 before it: the dataset gates of
      tests/test_ondevice.py, the batch solver's kernels launched,
- 10. policy_pd against its plain twin at B=256 (the datagen's last
-     observations), 4096 and 1000 (a ragged tile), timed with CUDA events
-     (it runs after 12, whose rows it takes),
+ 10. policy_pd against its plain twin (the fp32 addmm chain on cuBLAS) at
+     B=256 (the datagen's last observations), 1000 (a ragged cluster) and
+     4096, both timed once each way: eager calls between CUDA events (as
+     every kernel) and device time (CUDA-graph replay); the kernel's
+     registers, local bytes, shared memory and resident clusters
+     (cudaFuncGetAttributes) (it runs after 12, whose rows it takes),
  13. SafeDAgger mode: 256 envs x 8 intervals (policy for 20 steps, the MPC
      latched >= 60 steps once engaged), then B=2 x 2 intervals against the
      JAX golden (tests/data/go2_trot_safedagger_golden.npz),
@@ -68,7 +71,8 @@ device plant). Phases, one line each:
      the tensor cores) on phase 10's observations at B = 256, 1000 and 4096,
      counters set to 0 before the three calls: against its plain twin
      (one bf16 ulp of the output scale) and the fp32 kernel (2^-5 of it),
-     timed beside the fp32 kernel and the addmm chains on cuBLAS,
+     timed both ways beside the bf16 addmm chain on cuBLAS, with phase 10's
+     times of the fp32 kernel and chain,
  18. the card's ceilings: fma_chain against its twin, then its fp32 FMA rate
      at full size (counters as above), and the HBM rate of x + 1.0 over 1 GiB,
  19. one Riccati node's factorize-and-solve under three thread mappings (a
@@ -254,15 +258,17 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
     mode; ``record`` adds policy_pd's line to the kernels' results (its
     launches are the policy rollout's). Returns phase 10's policy_pd
     arguments by batch (the datagen's observations), which phase 17 serves
-    again."""
+    again, and phase 10's times by batch (kernel and fp32 addmm chain, eager
+    and device)."""
     import numpy as np
     import torch
 
     from iterative_learning_nmpc_tpu_torch.learning.network import ServedPolicy, load_policy
     from iterative_learning_nmpc_tpu_torch.learning.ondevice import make_batched_mpc_rollout
-    from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd, policy_pd_plain
+    from iterative_learning_nmpc_tpu_torch.ops.policy_pd import (
+        kernel_attributes, policy_pd, policy_pd_plain)
     from iterative_learning_nmpc_tpu_torch.sim import device_sim
-    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms, graph_time_ms
 
     net, norm = load_policy(os.path.join(ROOT, "assets", ARTIFACT), device=dev)
     served = ServedPolicy(net, norm, device=dev)
@@ -349,13 +355,14 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
 
     # ---- 10. policy_pd against its twin, on the datagen's observations ----
     layers = served.layers
+    dims = [int(layers[0][0].shape[0])] + [int(W.shape[1]) for W, _ in layers]
     flat = lambda t: t.reshape(-1, t.shape[-1])
     obs = served.normalize(flat(rows.state44),
                            torch.as_tensor(vd, device=dev).repeat_interleave(T_dg, 0))
     qj_all, vj_all = flat(rows.q)[:, 6:].contiguous(), flat(rows.v)[:, 6:].contiguous()
     pick = torch.randperm(obs.shape[0], generator=torch.Generator().manual_seed(SEED))
     pp_results = {}
-    for nb in (B_ENV, 4096, 1000):
+    for nb in (B_ENV, 1000, 4096):
         idx = (torch.arange(B_ENV) * T_dg + T_dg - 1 if nb == B_ENV else pick[:nb]).to(dev)
         args = (layers, POLICY_KP, POLICY_KD, obs[idx].contiguous(), qj_all[idx], vj_all[idx])
         (ak, tk), (ap, tp) = policy_pd(*args), policy_pd_plain(*args)
@@ -365,20 +372,32 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
         ok = bool(((ak - ap).abs() <= 2e-5 + 2e-4 * ap.abs()).all()
                   and ((tk - tp).abs() <= 1e-3 + 2e-4 * tp.abs()).all())
         err = max(float((ak - ap).abs().max()), float((tk - tp).abs().max()))
+        # as every kernel's line: eager calls between CUDA events (the
+        # kernel's twin is the fp32 addmm chain on cuBLAS); and the device
+        # time of each (CUDA-graph replay, the host's cost left out)
         ms = cuda_time_ms(lambda: policy_pd(*args), 50)
-        plain_ms = cuda_time_ms(lambda: policy_pd_plain(*args), 20)
-        pp_results[nb] = (err, ok, ms, plain_ms, args, (ak, tk))
+        chain_ms = cuda_time_ms(lambda: policy_pd_plain(*args), 20)
+        device_ms = graph_time_ms(lambda: policy_pd(*args))
+        device_chain_ms = graph_time_ms(lambda: policy_pd_plain(*args))
+        pp_results[nb] = (err, ok, ms, chain_ms, device_ms, device_chain_ms, args, (ak, tk))
         b_ms, b_by, flops, nbytes = bound(policy_pd_plain, args, (ak, tk))
-        print(f"[policy_pd] B={nb}: max_abs_err {err:.3e}, {ms:.4f} ms vs plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({flops:.4e} flop, "
-              f"{nbytes} B; {card})", flush=True)
-    err, ok, ms, plain_ms, args, out_k = pp_results[B_ENV]
+        print(f"[policy_pd] B={nb}: max_abs_err {err:.3e}, {ms:.4f} ms vs the fp32 addmm "
+              f"chain {chain_ms:.4f} ms; device time {device_ms:.4f} vs {device_chain_ms:.4f} "
+              f"ms; bound {b_ms:.6f} ms by {b_by} ({flops:.4e} flop, {nbytes} B; {card})",
+              flush=True)
+    attrs = kernel_attributes(dims, dev)
+    print("[policy_pd] " + ", ".join(f"{k} {v}" for k, v in attrs.items()), flush=True)
+    err, ok, ms, chain_ms, _, _, args, out_k = pp_results[B_ENV]
     launches["policy_pd"] = pol_launches
+    times = {key: {nb: r[i] for nb, r in pp_results.items()} for i, key in
+             enumerate(("ms_by_batch", "library_chain_ms", "device_ms_by_batch",
+                        "device_chain_ms"), start=2)}
     record("policy_pd", "iterative_learning_nmpc_tpu_torch/csrc/policy_pd.cu",
            "iterative_learning_nmpc_tpu/ops/policy_kernel.py:60",
            max(r[0] for r in pp_results.values()), all(r[1] for r in pp_results.values()),
            "|d act| <= 2e-5 + 2e-4 |act|, |d tau| <= 1e-3 + 2e-4 |tau| at B = "
-           + ", ".join(map(str, pp_results)), ms, plain_ms, policy_pd_plain, args, out_k)
+           + ", ".join(map(str, pp_results)), ms, chain_ms, policy_pd_plain, args, out_k,
+           extra=dict(times, kernel_attributes=attrs))
 
     # ---- 13. SafeDAgger mode ----
     x0b = np.concatenate([noisy_starts(B_ENV), np.zeros((B_ENV, 18), np.float32)], 1)
@@ -422,7 +441,7 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
     if not (same and errs["q1"] <= 5e-3 and errs["v1"] <= 0.1 and errs["a1"] <= 5e-2
             and errs["q"] <= 5e-2 and errs["a"] <= 0.15):
         fail("SafeDAgger B=2 disagrees with the JAX golden")
-    return {nb: r[4] for nb, r in pp_results.items()}
+    return {nb: r[6] for nb, r in pp_results.items()}, times
 
 
 def step_gate(gains_k, gains_p, gains64, h, defects, dx0):
@@ -655,19 +674,19 @@ def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launc
     return n100
 
 
-def policy_bf16_phase(dev, card, pp_args, kernels, record) -> float:
+def policy_bf16_phase(dev, card, pp_args, fp32_times, kernels, record) -> None:
     """Phase 17: the policy served through make_fused_policy_pd with
     compute_dtype=bfloat16 (kernel 8b) on phase 10's observations at
     B = 256, 1000 (a ragged tile) and 4096, counters set to 0 before the
     three calls: each against its plain twin and against the fp32 kernel,
-    and timed beside the fp32 kernel and the addmm chains on cuBLAS.
-    Returns the fp32 addmm chain's ms at B_ENV (kernel 8's yardstick)."""
+    and timed eagerly and by device time (CUDA-graph replay) beside the bf16
+    addmm chain on cuBLAS; the fp32 kernel's and chain's times are phase
+    10's (``fp32_times``)."""
     import torch
 
     from iterative_learning_nmpc_tpu_torch.ops.policy_pd import (
-        bf16_layers, make_fused_policy_pd, policy_pd, policy_pd_bf16, policy_pd_bf16_plain,
-        policy_pd_plain)
-    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
+        bf16_layers, make_fused_policy_pd, policy_pd, policy_pd_bf16, policy_pd_bf16_plain)
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms, graph_time_ms
 
     layers = pp_args[B_ENV][0]                    # the served fp32 layers, on dev
     fn = make_fused_policy_pd(layers, POLICY_KP, POLICY_KD, compute_dtype=torch.bfloat16,
@@ -710,19 +729,23 @@ def policy_bf16_phase(dev, card, pp_args, kernels, record) -> float:
         ok = (e_a <= BF16_ULP * scale and e_t <= POLICY_KP * BF16_ULP * scale + 1e-3
               and gap <= 2.0 ** -5)
         ms = cuda_time_ms(lambda: fn(x, qj, vj), 50)
-        ms32 = cuda_time_ms(lambda: policy_pd(layers, POLICY_KP, POLICY_KD, x, qj, vj), 50)
         plain_ms = cuda_time_ms(lambda: policy_pd_bf16_plain(layers, POLICY_KP, POLICY_KD,
                                                              x, qj, vj), 20)
-        chain32 = cuda_time_ms(lambda: policy_pd_plain(layers, POLICY_KP, POLICY_KD,
-                                                       x, qj, vj), 20)
         chain16 = cuda_time_ms(lambda: cublas_bf16(x, qj, vj), 20)
-        rows[nb] = (max(e_a, e_t), ok, ms, plain_ms, chain16, chain32, (x, qj, vj), (ak, tk))
+        device_ms = graph_time_ms(lambda: fn(x, qj, vj))
+        device_chain16 = graph_time_ms(lambda: cublas_bf16(x, qj, vj))
+        rows[nb] = (max(e_a, e_t), ok, ms, plain_ms, chain16, device_ms, device_chain16,
+                    (x, qj, vj), (ak, tk))
+        t32 = {k: v[nb] for k, v in fp32_times.items()}
         print(f"[policy_pd_bf16] B={nb}: vs twin |d act| {e_a:.3e} (<= {BF16_ULP * scale:.3e}), "
               f"|d tau| {e_t:.3e}; vs the fp32 kernel {gap:.3e} of the output scale "
-              f"(<= {2.0 ** -5:.3e}); bf16 kernel {ms:.4f} ms, fp32 kernel {ms32:.4f} ms, "
-              f"twin {plain_ms:.4f} ms, addmm chain on cuBLAS: bf16 {chain16:.4f} ms, "
-              f"fp32 {chain32:.4f} ms ({card})", flush=True)
-    err, ok, ms, plain_ms, chain16, chain32, (x, qj, vj), out = rows[B_ENV]
+              f"(<= {2.0 ** -5:.3e}); bf16 kernel {ms:.4f} ms (device {device_ms:.4f}), "
+              f"twin {plain_ms:.4f} ms, bf16 addmm chain on cuBLAS {chain16:.4f} ms (device "
+              f"{device_chain16:.4f}); phase 10's fp32 kernel {t32['ms_by_batch']:.4f} ms "
+              f"(device {t32['device_ms_by_batch']:.4f}), fp32 chain "
+              f"{t32['library_chain_ms']:.4f} ms (device {t32['device_chain_ms']:.4f}) "
+              f"({card})", flush=True)
+    err, ok, ms, plain_ms, _, _, _, (x, qj, vj), out = rows[B_ENV]
     (W1, _), (W2, _), (W3, _), (W4, b4) = bl
     B, n_in, h1, h2, h3, n_out = x.shape[0], *W1.shape, W2.shape[1], W3.shape[1], b4.shape[0]
     work = (2.0 * B * n_in * h1, 2.0 * B * (h1 * h2 + h2 * h3 + h3 * n_out),
@@ -733,8 +756,9 @@ def policy_bf16_phase(dev, card, pp_args, kernels, record) -> float:
            "|d act| <= 2^-8 max(1, |act|), |d tau| <= kp 2^-8 max(1, |act|) + 1e-3 against the "
            "twin, |d act| <= 2^-5 max(1, |act|) against the fp32 kernel, at B = "
            + ", ".join(map(str, rows)), ms, plain_ms, None, None, out, n_launch=n_launch,
-           work=work, extra=dict(library_chain_ms=chain16))
-    return chain32
+           work=work, extra={key: {nb: r[i] for nb, r in rows.items()} for i, key in
+                             ((2, "ms_by_batch"), (4, "library_chain_ms"),
+                              (5, "device_ms_by_batch"), (6, "device_chain_ms"))})
 
 
 def ceiling_phase(dev, card, kernels, record):
@@ -1192,15 +1216,14 @@ def main() -> None:
         fail(f"first plan rel|dU| {du:.2e} > {REL_GATE}")
 
     # ---- 10-13. the learned-policy serving path ----
-    pp_args = policy_phases(dev, card, spec_d, q0, kernels, launches, record)
+    pp_args, fp32_times = policy_phases(dev, card, spec_d, q0, kernels, launches, record)
 
     # ---- 14-16. the Riccati routes ----
     n100 = riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launches,
                                 record)
     next(r for r in results if r["name"] == "lingram").update(n100)
     # ---- 17-19. the bf16 policy, the card's ceilings, the node solve ----
-    chain32 = policy_bf16_phase(dev, card, pp_args, kernels, record)
-    next(r for r in results if r["name"] == "policy_pd")["library_chain_ms"] = chain32
+    policy_bf16_phase(dev, card, pp_args, fp32_times, kernels, record)
     tf, bw = ceiling_phase(dev, card, kernels, record)
     node_solve_phase(dev, card, kernels, record)
     for r in results:

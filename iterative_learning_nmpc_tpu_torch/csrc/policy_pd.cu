@@ -8,160 +8,594 @@
 // Replaces iterative_learning_nmpc_tpu/ops/policy_kernel.py
 // make_fused_policy_pd (_policy_pd_kernel), fp32 compute_dtype.
 //
-// Bound on this card: fp32 FMA throughput (2 B (n_in h + 2 h^2 + h n_out)
-// flops, 2.8e8 at B = 256 for the 47 -> 512x3 -> 12 net) against 2.3 MB of
-// weights. The TPU kernel keeps all weights in VMEM; here they do not fit
-// in a block's shared memory, so each block streams them from global
-// memory (where they stay in the 50 MB L2 across blocks) in tiles of
-// PP_KT rows, through a PP_STAGES-deep cp.async ring in shared memory, so
-// that the loads of the next tiles overlap the FMAs on the current one and
-// each weight is fetched once per block. Design: one block of 128 threads
-// per tile of 8 rows (B = 256 gives 32 blocks); the tile's activations stay
-// in shared memory across the four layers, transposed (k-major, 8 floats
-// per k) and double-buffered. Thread (row group g = t / 64, lane
-// l = t % 64) accumulates rows 4g..4g+3 times columns 4l..4l+3 and
-// 256+4l..256+4l+3 of each 512-column pass: per k one broadcast float4 of
-// activations and two conflict-free float4 of weights feed 32 FMAs. The PD
-// epilogue is the last layer's. Rows past B (the ragged last tile) read
-// zeros and write nothing. Every layer width must be a multiple of 4 and
-// the weights 16-byte aligned (checked by the wrapper).
+// Bound on this card: fp32 FMA throughput, 2 B (n_in h1 + h1 h2 + h2 h3 +
+// h3 n_out) flops (2.8e8 at B = 256 for the 47 -> 512x3 -> 12 net, ~4.2 us
+// on 132 SMs), against 2.2 MB of weights that stay in the 50 MB L2. What
+// the card makes hard is filling it: B = 256 is 256 rows, and a design
+// that gives each block all columns of a few rows (the first version: 32
+// blocks of 8 rows) leaves 100 SMs idle and makes every block stream every
+// weight. So the columns are spread over a thread-block cluster.
+//
+// Design. A cluster of PP_CLUSTER = 8 blocks serves R = PP_ROWS = 32 rows;
+// block (rank) c owns column slice c of every hidden layer, cw = 4 ceil(h /
+// 32) <= 64 columns wide (ragged or empty at the end when h is not a
+// multiple of 32), and only ever loads that slice of W1-W3. A block is 8
+// consumer warps and one producer warp.
+// - Weights arrive by TMA: the producer warp's lane 0 streams the block's
+//   chunks, each one box of a 2-D tensor map (cp.async.bulk.tensor; PP_KC =
+//   128 weight rows x PP_CW = 64 columns at the slice, zeros past the
+//   matrix), into a ring of PP_STAGES = 2 slots of 32 KB that complete on
+//   mbarriers; a second mbarrier per slot, one arrival per consumer warp,
+//   frees it. The stream runs across layer boundaries, so
+//   the next layer's chunks load while the current layer computes. (Tried
+//   on the card, each slower: one 1-D bulk copy per 256-byte weight row;
+//   32- and 64-row chunks; warp 0 starting the copies between its own
+//   FMAs: starting a copy holds its thread, which a dedicated producer
+//   hides.)
+// - Activations live in shared memory, k-major (h[k R + row]), double
+//   buffered (layer l reads buffer l % 2), and never go to global memory:
+//   after a hidden layer each block pushes its output slice into the other
+//   buffer of all 8 blocks through distributed shared memory with st.async
+//   (mapa; each store counts its bytes on a per-source mbarrier in the
+//   receiving block, armed at the start with the bytes that source sends).
+//   A block starts the next layer once every source's bytes have arrived
+//   (waiting per chunk for its sources measured slower: an acquire at
+//   cluster scope per chunk). A block overwrites a peer's buffer only after
+//   that peer has sent its own slice of the layer before, so it has
+//   finished reading it (a block whose slice is empty sends nothing and
+//   reads only for columns it discards).
+// - A consumer warp owns a 16 x 64 tile (a lane 4 rows x 8 columns: one
+//   broadcast float4 of activations and two conflict-free float4 of weights
+//   feed 32 FMAs) over 1/KS of each chunk's rows; the KS = 8 / (R / 16) = 4
+//   partial tiles are summed through shared memory (red) once per layer,
+//   then bias and ReLU. The biases and the PD inputs the epilogues need are
+//   read into registers at the start.
+// - The last layer is split over K, not N: each block multiplies the layer-3
+//   slice it holds by the matching cw rows of W4 (contiguous: a 1-D bulk
+//   copy), pushes its R x n_out partial sums, row by row, to the block that
+//   owns those rows (R / 8 rows each; st.async again), and that block sums
+//   the 8 partials, adds b4 and applies the PD step.
+// The only cluster barrier is the first (every block's mbarriers exist
+// before any remote access); every remote write to a block is counted on a
+// barrier that block waits for, so a block may exit after its epilogue.
+// Rows per cluster: 32 at every B, so the grid is ceil(B / 32) clusters
+// (B = 256: 8 clusters, 64 of 132 SMs; B = 4096: 128 clusters in 9 waves of
+// the 15 an H100 SXM holds at once). 16 rows were measured slower at B = 256
+// (16 clusters, one more than the card holds, so two waves) and faster only
+// at B <= 240, a batch no serving path runs. Rows past B read zeros and
+// write nothing. Every layer width must be a multiple of 4, h1-h3 <= 512,
+// n_out <= 64, and the weights 16-byte aligned (checked by the wrapper); the
+// widest of n_in, h1, h2 and n_out must leave the block's shared memory
+// within the card's opt-in limit (the launch returns PP_ERR_SMEM if not).
+//
+// Compiled with -DPP_TRACE (scripts/trace_policy_kernel_torch.py), thread 0
+// of each block writes %globaltimer at the ends of its phases into
+// pp_stamps; the shipped build has no stamps.
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#define PP_TM 8          // rows (environments) per block
-#define PP_THREADS 128   // 2 row groups x 64 column lanes
-#define PP_RPT 4         // rows per thread
-#define PP_CW 512        // columns per pass: 64 lanes x 2 float4
-#define PP_KT 8          // weight rows per staged tile
-#define PP_STAGES 3      // tiles in flight
+#define PP_CLUSTER 8                   // blocks of a cluster: the column slices
+#define PP_CONSUMERS 256               // 8 consumer warps
+#define PP_THREADS (PP_CONSUMERS + 32)  // and a producer warp
+#define PP_CW 64                       // columns of a slice at most
+#define PP_KC 128                      // weight rows of a hidden layer's chunk
+#define PP_SLOT (PP_KC * PP_CW)        // floats of a ring slot (32 KB)
+#define PP_RED (8 * 16 * PP_CW)        // floats of the partial tiles
+#define PP_ROWS 32                     // rows a cluster serves
+#define PP_STAGES 2                    // ring slots
+#define PP_ERR_SMEM (-1)               // the widths need more shared memory than the card has
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+#ifdef PP_TRACE
+#define PP_STAMPS 11
+__device__ unsigned long long pp_stamps[1 << 16];
+#define PP_STAMP(i)                                                           \
+  do {                                                                        \
+    if (threadIdx.x == 0) {                                                   \
+      unsigned long long t_;                                                  \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                 \
+      pp_stamps[blockIdx.x * PP_STAMPS + (i)] = t_;                           \
+    }                                                                         \
+  } while (0)
+extern "C" int pp_trace_rows() { return PP_ROWS; }
+extern "C" int pp_read_stamps(unsigned long long* out, int n) {
+  return (int)cudaMemcpyFromSymbol(out, pp_stamps, (size_t)n * 8);
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+#else
+#define PP_STAMP(i) \
+  do {              \
+  } while (0)
+#endif
+
+// ---- Hopper primitives ----
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
-__device__ __forceinline__ void cp_async_wait_prior() {  // all but the newest group
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PP_STAGES - 2));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// wait for a phase completed by other blocks' arrivals, acquiring their writes
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// contiguous global -> this block's shared memory, completing on bar
+// (16-byte aligned addresses, bytes a multiple of 16)
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// a box of a 2-D tensor map (box origin: column c, row k; out-of-range
+// elements read as zeros) -> this block's shared memory, completing on bar
+__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map, int c, int k,
+                                           uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(k), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+// the 8 consumer warps only (the producer warp runs its own loop)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(PP_CONSUMERS) : "memory");
+}
+// the address of the same shared-memory variable in block `rank` of the cluster
+__device__ __forceinline__ unsigned map_rank(const void* p, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+// store v at cluster address addr and count its 16 bytes on the mbarrier at
+// cluster address bar (in the same block as addr)
+__device__ __forceinline__ void st_async(unsigned addr, float4 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
 }
 
-// Stage weight rows k0 .. k0+PP_KT-1 (those < K), columns n0 .. n0+nw-1 of
-// W (K x N) into sw (PP_KT x PP_CW).
-__device__ __forceinline__ void load_tile(float* sw, const float* __restrict__ W,
-                                          int K, int N, int k0, int n0, int nw) {
-  const int per_row = nw >> 2;
-  const int rows = min(PP_KT, K - k0);
-  for (int i = threadIdx.x; i < rows * per_row; i += PP_THREADS) {
-    const int kk = i / per_row, c = (i - kk * per_row) << 2;
-    cp_async16(sw + kk * PP_CW + c, W + (size_t)(k0 + kk) * N + n0 + c);
+// W1-W3 as 2-D tensor maps with PP_KC x PP_CW boxes; W4 and the rest plain.
+struct PPArgs {
+  CUtensorMap map[3];
+  const float *x, *qj, *vj;
+  const float* W4;
+  const float* b[4];
+  float *act, *tau;
+  int B, dims[5];
+  float kp, kd;
+};
+
+__host__ __device__ __forceinline__ int pp_slice(int h) { return 4 * ((h + 31) / 32); }
+// floats of one activation buffer: PP_ROWS rows of the widest layer input
+__host__ __device__ __forceinline__ int pp_act_floats(const int* dims) {
+  int d = dims[0];
+  if (dims[1] > d) d = dims[1];
+  if (dims[2] > d) d = dims[2];
+  if (pp_slice(dims[3]) > d) d = pp_slice(dims[3]);
+  return PP_ROWS * (4 * ((d + 3) / 4));
+}
+
+__device__ __forceinline__ void slice_of(int h, unsigned rank, int& c0, int& w) {
+  const int cw = pp_slice(h);
+  c0 = (int)rank * cw;
+  w = max(0, min(cw, h - c0));
+}
+
+// The chunk stream of one block: layers 1-3 in boxes of PP_KC weight rows x
+// PP_CW columns at the block's slice, then the block's w3 rows of W4 in
+// chunks of PP_SLOT / n_out rows (at least one, empty for an empty slice).
+struct Stream {
+  int e1, e2, e3, total;   // first chunk of layers 2, 3, 4; chunks in all
+  int step4, w3, c03;
+  __device__ Stream(const int* dims, unsigned r) {
+    e1 = (dims[0] + PP_KC - 1) / PP_KC;
+    e2 = e1 + (dims[1] + PP_KC - 1) / PP_KC;
+    e3 = e2 + (dims[2] + PP_KC - 1) / PP_KC;
+    slice_of(dims[3], r, c03, w3);
+    step4 = PP_SLOT / dims[4];
+    total = e3 + max(1, (w3 + step4 - 1) / step4);
+  }
+  // chunk g: layer l (0-3) and its first weight row k0
+  __device__ void chunk(int g, int& l, int& k0) const {
+    l = g < e1 ? 0 : g < e2 ? 1 : g < e3 ? 2 : 3;
+    k0 = l == 0 ? g * PP_KC : l == 1 ? (g - e1) * PP_KC : l == 2 ? (g - e2) * PP_KC
+                                                               : (g - e3) * step4;
+  }
+};
+
+// The producer: lane 0 of the last warp streams every chunk, each into its
+// slot once the consumer warps have freed the slot's previous chunk.
+__device__ __forceinline__ void produce(const Stream& st, const PPArgs& a, unsigned rank,
+                                        float* ring, uint64_t* full, uint64_t* empty) {
+  for (int g = 0; g < st.total; ++g) {
+    const int s = g % PP_STAGES;
+    int l, k0;
+    st.chunk(g, l, k0);
+    if (g >= PP_STAGES) mbar_wait(&empty[s], (unsigned)((g / PP_STAGES - 1) & 1));
+    float* slot = ring + s * PP_SLOT;
+    if (l < 3) {
+      int c0, w;
+      slice_of(a.dims[l + 1], rank, c0, w);
+      mbar_expect_tx(&full[s], PP_SLOT * 4);   // the whole box, zeros included
+      tma_load_2d(slot, &a.map[l], c0, k0, &full[s]);
+    } else {
+      const int n_out = a.dims[4];
+      const unsigned bytes = (unsigned)(min(st.step4, st.w3 - k0) * n_out * 4);
+      mbar_expect_tx(&full[s], bytes);
+      if (bytes > 0) bulk_load(slot, a.W4 + (size_t)(st.c03 + k0) * n_out, bytes, &full[s]);
+    }
   }
 }
 
-// One layer for the block's rows: hin (K x PP_TM, k-major, shared) times
-// W (K x N, global, staged through ring) plus b. Hidden layers write
-// relu(.) to hout (N x PP_TM, shared); the last layer writes act and the PD
-// torque to global memory.
-template <bool LAST>
-__device__ __forceinline__ void dense_tile(
-    const float* __restrict__ hin, int K, const float* __restrict__ W,
-    const float* __restrict__ bias, int N, float* __restrict__ hout,
-    float* __restrict__ ring, int row0, int B, const float* __restrict__ qj,
-    const float* __restrict__ vj, float kp, float kd, float* __restrict__ act,
-    float* __restrict__ tau) {
-  const int lane = threadIdx.x & 63;
-  const int r0 = (threadIdx.x >> 6) * PP_RPT;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int nk = (K + PP_KT - 1) / PP_KT;
-  for (int n0 = 0; n0 < N; n0 += PP_CW) {
-    const int nw = min(PP_CW, N - n0);
-    const bool okA = 4 * lane < nw, okB = 256 + 4 * lane < nw;
-    float acc[PP_RPT][8];
+// Wait for chunk g; its slot.
+__device__ __forceinline__ const float* chunk_wait(int g, float* ring, uint64_t* full) {
+  const int s = g % PP_STAGES;
+  mbar_wait(&full[s], (unsigned)((g / PP_STAGES) & 1));
+  return ring + s * PP_SLOT;
+}
+
+// This warp is done with chunk g: free its slot (one arrival per warp).
+__device__ __forceinline__ void chunk_done(int g, uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[g % PP_STAGES]);
+}
+
+__global__ void __launch_bounds__(PP_THREADS, 1)
+    policy_pd_kernel(const __grid_constant__ PPArgs a) {
+  constexpr int R = PP_ROWS;
+  constexpr int RT = R / 16;          // row tiles of 16
+  constexpr int KS = 8 / RT;          // warps sharing a row tile over K
+  constexpr int RO = R / PP_CLUSTER;  // rows whose epilogue a block owns
+  constexpr int R4 = R / 4;           // groups of 4 rows
+  constexpr int S = PP_STAGES;
+  extern __shared__ __align__(128) float smem[];
+  const int* dims = a.dims;
+  const int n_out = dims[4];
+  float* ring = smem;                                  // S x PP_SLOT
+  float* h0 = ring + S * PP_SLOT;                      // k-major layer inputs:
+  float* h1 = h0 + pp_act_floats(dims);                // layer l reads h0 or h1
+  float* red = h1 + pp_act_floats(dims);               // PP_RED partial tiles
+  float* part = red + PP_RED;                          // 8 x RO x n_out
+  uint64_t* full = reinterpret_cast<uint64_t*>(part + R * n_out);
+  uint64_t* empty = full + S;
+  uint64_t* xbar = empty + S;        // [layer 1, 2][source block]: slices arrived
+  uint64_t* pbar = xbar + 2 * PP_CLUSTER;   // the last layer's partial sums arrived
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const unsigned rank = cluster_rank();
+  const int row0 = (int)(blockIdx.x / PP_CLUSTER) * R;
+  const Stream st(dims, rank);
+  PP_STAMP(0);
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], PP_CONSUMERS / 32);
+    }
+    // the slices' and the partial sums' barriers complete on the bytes that
+    // arrive: source p sends R x (its slice of layer l's output) floats
+    for (int l = 0; l < 2; ++l)
+      for (int p = 0; p < PP_CLUSTER; ++p) {
+        int c0, w;
+        slice_of(dims[l + 1], (unsigned)p, c0, w);
+        mbar_init(&xbar[l * PP_CLUSTER + p], 1);
+        mbar_expect_tx(&xbar[l * PP_CLUSTER + p], (unsigned)(R * w * 4));
+      }
+    mbar_init(pbar, 1);
+    mbar_expect_tx(pbar, (unsigned)(R * n_out * 4));
+    mbar_init_fence();
+  }
+  cluster_sync();   // every block's mbarriers exist before any remote access
+  if (warp == PP_CONSUMERS / 32) {
+    if (lane == 0) produce(st, a, rank, ring, full, empty);
+    return;
+  }
+
+  // what the epilogues read from global memory, loaded at the start: each
+  // hidden layer's bias at the columns this thread sums, and the PD inputs
+  float bias[3][RT];
 #pragma unroll
-    for (int i = 0; i < PP_RPT; ++i)
+  for (int l = 0; l < 3; ++l) {
+    int c0, w;
+    slice_of(dims[l + 1], rank, c0, w);
+#pragma unroll
+    for (int q = 0; q < RT; ++q) {
+      const int col = (tid + PP_CONSUMERS * q) / R4;
+      bias[l][q] = col < w ? a.b[l][c0 + col] : 0.f;
+    }
+  }
+  float pq[2], pv[2], pb[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = tid + PP_CONSUMERS * e, rl = i / n_out, n = i - rl * n_out;
+    const int row = row0 + (int)rank * RO + rl;
+    const bool in = i < RO * n_out && row < a.B;
+    const size_t o = (size_t)row * n_out + n;
+    pq[e] = in ? a.qj[o] : 0.f;
+    pv[e] = in ? a.vj[o] : 0.f;
+    pb[e] = i < RO * n_out ? a.b[3][n] : 0.f;
+  }
+  for (int i = tid; i < R * dims[0]; i += PP_CONSUMERS) {
+    const int m = i / dims[0], k = i - m * dims[0];
+    const int row = row0 + m;
+    h0[k * R + m] = row < a.B ? a.x[(size_t)row * dims[0] + k] : 0.f;
+  }
+  consumers_sync();
+  PP_STAMP(1);
+
+  int g = 0;   // the next chunk to consume
+  const int rt = warp % RT, kg = warp / RT;
+  const int rg = lane >> 3, cg = lane & 7;
+#pragma unroll
+  for (int l = 0; l < 3; ++l) {
+    float acc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    // prologue: the first PP_STAGES - 1 tiles (one commit group each)
-#pragma unroll
-    for (int s = 0; s < PP_STAGES - 1; ++s) {
-      if (s < nk) load_tile(ring + s * PP_KT * PP_CW, W, K, N, s * PP_KT, n0, nw);
-      cp_async_commit();
-    }
-    for (int t = 0; t < nk; ++t) {
-      cp_async_wait_prior();   // tile t has landed (this thread's copies)
-      __syncthreads();         // ... everyone's; tile t-1's slot is free
-      const int tn = t + PP_STAGES - 1;
-      if (tn < nk)
-        load_tile(ring + (tn % PP_STAGES) * PP_KT * PP_CW, W, K, N, tn * PP_KT, n0, nw);
-      cp_async_commit();
-      const float* sw = ring + (t % PP_STAGES) * PP_KT * PP_CW;
-      const int k0 = t * PP_KT, kn = min(PP_KT, K - k0);
+    const float* hrow = (l & 1 ? h1 : h0) + rt * 16 + rg * 4;
+    if (l > 0)   // every block has sent its slice of this layer's input
+      for (int p = 0; p < PP_CLUSTER; ++p) mbar_wait_cluster(&xbar[(l - 1) * PP_CLUSTER + p], 0);
+    const int K = dims[l];
+    for (int k0 = 0; k0 < K; k0 += PP_KC, ++g) {
+      const int rows = min(PP_KC, K - k0);
+      const float* sw = chunk_wait(g, ring, full);
 #pragma unroll 4
-      for (int kk = 0; kk < kn; ++kk) {
-        const float4 h = *reinterpret_cast<const float4*>(hin + (k0 + kk) * PP_TM + r0);
-        const float4 wa = okA ? *reinterpret_cast<const float4*>(sw + kk * PP_CW + 4 * lane) : zero;
-        const float4 wb =
-            okB ? *reinterpret_cast<const float4*>(sw + kk * PP_CW + 256 + 4 * lane) : zero;
-        const float hv[PP_RPT] = {h.x, h.y, h.z, h.w};
+      for (int kk = kg; kk < rows; kk += KS) {
+        const float4 hv4 = *reinterpret_cast<const float4*>(hrow + (k0 + kk) * R);
+        const float4 wa = *reinterpret_cast<const float4*>(sw + kk * PP_CW + 4 * cg);
+        const float4 wb = *reinterpret_cast<const float4*>(sw + kk * PP_CW + 32 + 4 * cg);
+        const float hv[4] = {hv4.x, hv4.y, hv4.z, hv4.w};
         const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
 #pragma unroll
-        for (int i = 0; i < PP_RPT; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(hv[i], wv[j], acc[i][j]);
       }
+      chunk_done(g, empty, lane);
     }
-    __syncthreads();           // the ring is free for the next pass or layer
+    PP_STAMP(2 + 2 * l);
+    if (l > 0) consumers_sync();   // the previous layer's partial tiles are read
+    // the warp's tile, column-major (red[(warp 64 + col) 16 + row])
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? 4 * lane : 256 + 4 * lane) + (j & 3);
-      if (n >= N) continue;
-      const float bn = bias[n];
-      if (!LAST) {
-        *reinterpret_cast<float4*>(hout + n * PP_TM + r0) =
-            make_float4(fmaxf(acc[0][j] + bn, 0.f), fmaxf(acc[1][j] + bn, 0.f),
-                        fmaxf(acc[2][j] + bn, 0.f), fmaxf(acc[3][j] + bn, 0.f));
-      } else {
+      const int col = (j < 4 ? 4 * cg : 32 + 4 * cg) + (j & 3);
+      *reinterpret_cast<float4*>(red + (warp * PP_CW + col) * 16 + rg * 4) =
+          make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+    }
+    consumers_sync();
+    // sum the KS partial tiles: thread -> 4 rows of one column per pass,
+    // consecutive threads on consecutive rows; bias, ReLU, then out
+    int c0, w;
+    slice_of(dims[l + 1], rank, c0, w);
+    float* hout = l & 1 ? h0 : h1;
 #pragma unroll
-        for (int i = 0; i < PP_RPT; ++i) {
-          const int row = row0 + r0 + i;
-          if (row >= B) continue;
-          const size_t o = (size_t)row * N + n;
-          const float a = acc[i][j] + bn;
-          act[o] = a;
-          tau[o] = kp * (a - qj[o]) - kd * vj[o];
-        }
+    for (int q = 0; q < RT; ++q) {
+      const int idx = tid + PP_CONSUMERS * q;
+      const int col = idx / R4, row = (idx % R4) * 4;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        const float4 p = *reinterpret_cast<const float4*>(
+            red + ((k * RT + (row >> 4)) * PP_CW + col) * 16 + (row & 15));
+        s.x += p.x;
+        s.y += p.y;
+        s.z += p.z;
+        s.w += p.w;
+      }
+      const float bn = bias[l][q];
+      const float4 v = make_float4(fmaxf(s.x + bn, 0.f), fmaxf(s.y + bn, 0.f),
+                                   fmaxf(s.z + bn, 0.f), fmaxf(s.w + bn, 0.f));
+      if (col >= w) continue;
+      if (l < 2) {   // into the next input of every block of the cluster
+        const float* dst = hout + (c0 + col) * R + row;
+        uint64_t* bar = &xbar[l * PP_CLUSTER + rank];
+#pragma unroll
+        for (unsigned p = 0; p < PP_CLUSTER; ++p) st_async(map_rank(dst, p), v, map_rank(bar, p));
+      } else {       // the layer-3 slice stays here, k-major over its columns
+        *reinterpret_cast<float4*>(hout + col * R + row) = v;
       }
     }
+    PP_STAMP(3 + 2 * l);
   }
+  consumers_sync();   // the layer-3 slice is in place
+
+  // layer 4 over K: this block's w3 rows of W4 times its layer-3 slice
+  const float* h3 = h1;
+  const int n4 = n_out >> 2, nq = R * n4;
+  float4 pacc[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) pacc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k0 = 0; g < st.total; k0 += st.step4, ++g) {
+    const float* sw = chunk_wait(g, ring, full);
+    const int rows = min(st.step4, st.w3 - k0);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int idx = tid + PP_CONSUMERS * q;
+      if (idx >= nq) break;
+      const int row = idx / n4, j = (idx - row * n4) * 4;
+      for (int kk = 0; kk < rows; ++kk) {
+        const float hk = h3[(k0 + kk) * R + row];
+        const float4 wv = *reinterpret_cast<const float4*>(sw + kk * n_out + j);
+        pacc[q].x = fmaf(hk, wv.x, pacc[q].x);
+        pacc[q].y = fmaf(hk, wv.y, pacc[q].y);
+        pacc[q].z = fmaf(hk, wv.z, pacc[q].z);
+        pacc[q].w = fmaf(hk, wv.w, pacc[q].w);
+      }
+    }
+    chunk_done(g, empty, lane);
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int idx = tid + PP_CONSUMERS * q;
+    if (idx >= nq) break;
+    const int row = idx / n4, j = (idx - row * n4) * 4;
+    const float* dst = part + ((int)rank * RO + row % RO) * n_out + j;
+    st_async(map_rank(dst, (unsigned)(row / RO)), pacc[q], map_rank(pbar, (unsigned)(row / RO)));
+  }
+  PP_STAMP(8);
+  mbar_wait_cluster(pbar, 0);   // every block's partial sums of this block's rows
+  PP_STAMP(9);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = tid + PP_CONSUMERS * e;
+    if (i >= RO * n_out) break;
+    const int rl = i / n_out, n = i - rl * n_out;
+    const int row = row0 + (int)rank * RO + rl;
+    float s = 0.f;
+#pragma unroll
+    for (int p = 0; p < PP_CLUSTER; ++p) s += part[(p * RO + rl) * n_out + n];
+    if (row < a.B) {
+      const size_t o = (size_t)row * n_out + n;
+      const float v = s + pb[e];
+      a.act[o] = v;
+      a.tau[o] = a.kp * (v - pq[e]) - a.kd * pv[e];
+    }
+  }
+  PP_STAMP(10);
 }
 
-__global__ void __launch_bounds__(PP_THREADS)
-policy_pd_kernel(const float* __restrict__ x, const float* __restrict__ qj,
-                 const float* __restrict__ vj, const float* __restrict__ W1,
-                 const float* __restrict__ b1, const float* __restrict__ W2,
-                 const float* __restrict__ b2, const float* __restrict__ W3,
-                 const float* __restrict__ b3, const float* __restrict__ W4,
-                 const float* __restrict__ b4, float* __restrict__ act,
-                 float* __restrict__ tau, int B, int n_in, int h1, int h2,
-                 int h3, int n_out, int dmax, float kp, float kd) {
-  extern __shared__ __align__(16) float smem[];
-  float* ring = smem;                                   // PP_STAGES x PP_KT x PP_CW
-  float* hA = ring + PP_STAGES * PP_KT * PP_CW;
-  float* hB = hA + (size_t)dmax * PP_TM;
-  const int row0 = blockIdx.x * PP_TM;
-  for (int i = threadIdx.x; i < PP_TM * n_in; i += PP_THREADS) {
-    const int m = i / n_in, k = i - m * n_in;
-    const int row = row0 + m;
-    hA[k * PP_TM + m] = row < B ? x[(size_t)row * n_in + k] : 0.f;
+// Dynamic shared memory of a launch: the ring, two activation buffers, the
+// partial tiles, the last layer's partial sums and the mbarriers (2 S for
+// the ring, 2 x 8 for the slices, 1 for the sums).
+extern "C" int policy_pd_smem_bytes(int n_in, int h1, int h2, int h3, int n_out) {
+  const int dims[5] = {n_in, h1, h2, h3, n_out};
+  return (PP_STAGES * PP_SLOT + 2 * pp_act_floats(dims) + PP_RED + PP_ROWS * n_out) * 4 +
+         (2 * PP_STAGES + 2 * PP_CLUSTER + 1) * 8;
+}
+
+// The device's opt-in shared memory a block, read once per device; the
+// kernel is then allowed to take all of it, so a launch needs no attribute
+// call of its own.
+static cudaError_t pp_smem_optin(int* optin) {
+  static int known[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && known[dev]) {
+    *optin = known[dev];
+    return cudaSuccess;
   }
-  __syncthreads();
-  dense_tile<false>(hA, n_in, W1, b1, h1, hB, ring, row0, B, qj, vj, kp, kd, act, tau);
-  __syncthreads();
-  dense_tile<false>(hB, h1, W2, b2, h2, hA, ring, row0, B, qj, vj, kp, kd, act, tau);
-  __syncthreads();
-  dense_tile<false>(hA, h2, W3, b3, h3, hB, ring, row0, B, qj, vj, kp, kd, act, tau);
-  __syncthreads();
-  dense_tile<true>(hB, h3, W4, b4, n_out, nullptr, ring, row0, B, qj, vj, kp, kd, act,
-                   tau);
+  err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute((const void*)policy_pd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
+  if (err == cudaSuccess && dev < 64) known[dev] = *optin;
+  return err;
+}
+
+static void pp_cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int blocks,
+                              int smem, void* stream) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(blocks);
+  cfg->blockDim = dim3(PP_THREADS);
+  cfg->dynamicSmemBytes = (size_t)smem;
+  cfg->stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = PP_CLUSTER;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// The compiled kernel at these widths: out = (registers a thread, local
+// bytes a thread, static shared bytes, dynamic shared bytes, clusters the
+// card can hold at once).
+extern "C" int policy_pd_attributes(int n_in, int h1, int h2, int h3, int n_out, int* out) {
+  cudaFuncAttributes at;
+  cudaError_t err = cudaFuncGetAttributes(&at, (const void*)policy_pd_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int optin = 0;
+  err = pp_smem_optin(&optin);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = policy_pd_smem_bytes(n_in, h1, h2, h3, n_out);
+  if (smem > optin) return PP_ERR_SMEM;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  pp_cluster_config(&cfg, &attr, PP_CLUSTER, smem, nullptr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)policy_pd_kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = at.numRegs;
+  out[1] = (int)at.localSizeBytes;
+  out[2] = (int)at.sharedSizeBytes;
+  out[3] = smem;
+  out[4] = clusters;
+  return 0;
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// W (K x N, row-major fp32) as a tensor map of PP_KC x PP_CW boxes.
+static int pp_encode(CUtensorMap* map, const float* W, int K, int N) {
+  static EncodeTiledFn encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+    if (err != cudaSuccess) return (int)err;
+    if (q != cudaDriverEntryPointSuccess || !fn) return (int)cudaErrorNotSupported;
+    encode = (EncodeTiledFn)fn;
+  }
+  const cuuint64_t size[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t stride[1] = {(cuuint64_t)N * 4};
+  const cuuint32_t box[2] = {PP_CW, PP_KC};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)W, size, stride, box,
+                            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 extern "C" int policy_pd_launch(const float* x, const float* qj, const float* vj,
@@ -169,28 +603,39 @@ extern "C" int policy_pd_launch(const float* x, const float* qj, const float* vj
                                 const float* b2, const float* W3, const float* b3,
                                 const float* W4, const float* b4, float* act,
                                 float* tau, int B, int n_in, int h1, int h2,
-                                int h3, int n_out, float kp, float kd,
-                                void* stream) {
-  int dmax = n_in;
-  if (h1 > dmax) dmax = h1;
-  if (h2 > dmax) dmax = h2;
-  if (h3 > dmax) dmax = h3;
-  const int smem =
-      (PP_STAGES * PP_KT * PP_CW + 2 * dmax * PP_TM) * (int)sizeof(float);
-  // the largest dynamic shared memory allowed so far, per device
-  static int smem_set[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+                                int h3, int n_out, float kp, float kd, void* stream) {
+  if (h1 > 8 * PP_CW || h2 > 8 * PP_CW || h3 > 8 * PP_CW || n_out > PP_CW)
+    return (int)cudaErrorInvalidValue;
+  int optin = 0;
+  cudaError_t err = pp_smem_optin(&optin);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(policy_pd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) smem_set[dev] = smem;
+  const int smem = policy_pd_smem_bytes(n_in, h1, h2, h3, n_out);
+  if (smem > optin) return PP_ERR_SMEM;
+  PPArgs a;
+  const float* W[3] = {W1, W2, W3};
+  const int dims[5] = {n_in, h1, h2, h3, n_out};
+  for (int l = 0; l < 3; ++l) {
+    const int e = pp_encode(&a.map[l], W[l], dims[l], dims[l + 1]);
+    if (e) return e;
   }
-  const int grid = (B + PP_TM - 1) / PP_TM;
-  policy_pd_kernel<<<grid, PP_THREADS, smem, (cudaStream_t)stream>>>(
-      x, qj, vj, W1, b1, W2, b2, W3, b3, W4, b4, act, tau, B, n_in, h1, h2,
-      h3, n_out, dmax, kp, kd);
+  a.x = x;
+  a.qj = qj;
+  a.vj = vj;
+  a.W4 = W4;
+  a.b[0] = b1;
+  a.b[1] = b2;
+  a.b[2] = b3;
+  a.b[3] = b4;
+  a.act = act;
+  a.tau = tau;
+  a.B = B;
+  for (int i = 0; i < 5; ++i) a.dims[i] = dims[i];
+  a.kp = kp;
+  a.kd = kd;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  pp_cluster_config(&cfg, &attr, ((B + PP_ROWS - 1) / PP_ROWS) * PP_CLUSTER, smem, stream);
+  err = cudaLaunchKernelEx(&cfg, policy_pd_kernel, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -44,6 +44,8 @@ SIGNATURES = {
     "forward_rollout_launch": [_P] * 5 + [_I, _I, _F, _P],
     "dynjac_launch": [_P, _P, _P, _P, _P, _P, _I, _P],
     "policy_pd_launch": [_P] * 13 + [_I] * 6 + [_F, _F, _P],
+    "policy_pd_smem_bytes": [_I] * 5,
+    "policy_pd_attributes": [_I] * 5 + [_P],
     "policy_pd_bf16_launch": [_P] * 13 + [_I] * 7 + [_F, _F, _P],
     "fma_chain_launch": [_P, _P, _P, _I, _I, _I, _P],
     "node_solve_block_launch": [_P] * 9 + [_I, _P],

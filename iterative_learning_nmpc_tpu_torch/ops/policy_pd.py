@@ -12,6 +12,7 @@ layers), as the TPU kernel.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -61,9 +62,28 @@ def policy_pd_plain(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: flo
     return h, kp * (h - qj) - kd * vj
 
 
+# what policy_pd_launch returns when the widths need more shared memory a
+# block than the card allows (csrc/policy_pd.cu PP_ERR_SMEM)
+_ERR_SMEM = -1
+
+
+def kernel_attributes(dims: Sequence[int], device: torch.device) -> dict:
+    """Kernel 8 as compiled, for dims = (n_in, h1, h2, h3, n_out) on
+    ``device``: registers and local bytes a thread (stack frame and
+    spills), static and dynamic shared bytes a block, and the clusters the
+    card holds at once (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveClusters)."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        _build.check(_build.library().policy_pd_attributes(*dims, out), "policy_pd_attributes")
+    return dict(registers=out[0], local_bytes=out[1], static_smem=out[2], dynamic_smem=out[3],
+                max_active_clusters=out[4])
+
+
 def policy_pd(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: float,
               kd: float, x: torch.Tensor, qj: torch.Tensor, vj: torch.Tensor):
-    """Fused policy inference + PD torque; same contract as policy_pd_plain."""
+    """Fused policy inference + PD torque; same contract as policy_pd_plain.
+    On a CUDA tensor, one launch of kernel 8 (csrc/policy_pd.cu)."""
     if x.device.type == "cpu":
         return policy_pd_plain(layers, kp, kd, x, qj, vj)
     if x.device.type != "cuda":
@@ -82,6 +102,9 @@ def policy_pd(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: float,
         _check("policy_pd", f"b{i + 1}", b, (dims[i + 1],))
         if dims[i + 1] % 4:
             raise ValueError(f"policy_pd: layer widths must be multiples of 4, got {dims}")
+    if max(dims[1:4]) > 512 or n_out > 64:
+        raise ValueError(f"policy_pd: the kernel takes hidden widths <= 512 and n_out <= 64, "
+                         f"got {dims}")
     if any(t.device != x.device for t in (qj, vj, *[a for l in layers for a in l])):
         raise ValueError("policy_pd: every tensor must lie on x's device")
     if any(W.data_ptr() % 16 for W, _ in layers):
@@ -91,11 +114,14 @@ def policy_pd(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: float,
     if B == 0:
         return act, tau
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _build.library().policy_pd_launch(
+    lib = _build.library()
+    err = lib.policy_pd_launch(
         x.data_ptr(), qj.data_ptr(), vj.data_ptr(),
         *[t.data_ptr() for l in layers for t in l],
-        act.data_ptr(), tau.data_ptr(), B, *dims[:4], n_out,
-        float(kp), float(kd), stream)
+        act.data_ptr(), tau.data_ptr(), B, *dims, float(kp), float(kd), stream)
+    if err == _ERR_SMEM:
+        raise ValueError(f"policy_pd: widths {dims} need {lib.policy_pd_smem_bytes(*dims)} B "
+                         "of shared memory a block, more than the card allows")
     _build.check(err, "policy_pd_launch")
     policy_pd.launches += 1
     return act, tau

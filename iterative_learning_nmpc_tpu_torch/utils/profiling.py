@@ -88,3 +88,29 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_time_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Device ms per call of ``fn`` on the current CUDA card: ``reps`` calls
+    captured in one CUDA graph, replayed ``replays`` times between two CUDA
+    events, so the host's cost of a call (a wrapper's checks, the launch)
+    is not in the time; what ``fn`` reads stays in L2 between calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)

@@ -192,13 +192,45 @@ def _shipped_layers():
         return fold_batchnorm(pickle.load(f)["variables"])
 
 
+def _random_layers(h, seed):
+    """A seeded 47 -> h x3 -> 12 policy in the Flax layout (Dense + BatchNorm
+    with random running statistics), folded as the shipped one is."""
+    rng = np.random.default_rng(seed)
+    dims = (47, h, h, h, 12)
+    params, stats = {}, {}
+    for i in range(4):
+        params[f"Dense_{i}"] = {"kernel": rng.normal(0, dims[i] ** -0.5, dims[i:i + 2]),
+                                "bias": rng.normal(0, 0.1, dims[i + 1])}
+        if i < 3:
+            params[f"BatchNorm_{i}"] = {"scale": rng.uniform(0.5, 1.5, h),
+                                        "bias": rng.normal(0, 0.1, h)}
+            stats[f"BatchNorm_{i}"] = {"mean": rng.normal(0, 0.1, h),
+                                       "var": rng.uniform(0.5, 2.0, h)}
+    return fold_batchnorm({"params": params, "batch_stats": stats})
+
+
+def _policy_layers(width, dev):
+    """The shipped 47 -> 512x3 -> 12 policy, or a seeded one at hidden width
+    256 (the JAX network's default) or 132 (a multiple of 4 but not of 8 or
+    32: ragged column slices, the last one empty)."""
+    layers = _shipped_layers() if width == 512 else _random_layers(width, width)
+    return [(torch.as_tensor(W, device=dev), torch.as_tensor(b, device=dev)) for W, b in layers]
+
+
+# one row, one cluster of 32 rows and the partial ones on each side of it,
+# the datagen batch and past it, B on each side of one wave (the 15
+# clusters an H100 SXM holds at once), a ragged batch and the largest bench
+# batch
+PD_BATCHES = [1, 31, 32, 33, 256, 257, 480, 481, 1000, 4096]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 33, 256])
-def test_policy_pd_kernel_matches_plain(card, B):
-    """Kernel 8 at one row, a ragged tile count and the datagen batch."""
+@pytest.mark.parametrize("width", [512, 256, 132])
+@pytest.mark.parametrize("B", PD_BATCHES)
+def test_policy_pd_kernel_matches_plain(card, B, width):
+    """Kernel 8 in one launch, at every edge of its cluster layout."""
     dev = torch.device("cuda")
-    layers = [(torch.as_tensor(W, device=dev), torch.as_tensor(b, device=dev))
-              for W, b in _shipped_layers()]
+    layers = _policy_layers(width, dev)
     gen = torch.Generator().manual_seed(B)
     x, qj, vj = (torch.randn(B, n, generator=gen).to(dev) for n in (47, 12, 12))
     n0 = policy_pd.launches
@@ -210,6 +242,63 @@ def test_policy_pd_kernel_matches_plain(card, B):
     # bounds, tau scaled by kp
     torch.testing.assert_close(ak, ap, rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(tk, tp, rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [33, 257, 1000])
+def test_policy_pd_kernel_writes_no_row_past_B(card, B):
+    """act and tau as views of larger canary-filled buffers: rows past B
+    (a partial cluster's) are never written."""
+    from iterative_learning_nmpc_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    layers = _policy_layers(512, dev)
+    gen = torch.Generator().manual_seed(B)
+    x, qj, vj = (torch.randn(B, n, generator=gen).to(dev) for n in (47, 12, 12))
+    dims = [47, 512, 512, 512, 12]
+    canary = -12345.0
+    act_buf, tau_buf = (torch.full((B + 64, 12), canary, device=dev) for _ in range(2))
+    err = _build.library().policy_pd_launch(
+        x.data_ptr(), qj.data_ptr(), vj.data_ptr(), *[t.data_ptr() for l in layers for t in l],
+        act_buf.data_ptr(), tau_buf.data_ptr(), B, *dims, 20.0, 1.5,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "policy_pd_launch")
+    torch.cuda.synchronize()
+    assert bool((act_buf[B:] == canary).all() and (tau_buf[B:] == canary).all())
+    ap, tp = policy_pd_plain(layers, 20.0, 1.5, x, qj, vj)
+    torch.testing.assert_close(act_buf[:B], ap, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(tau_buf[:B], tp, rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_policy_pd_kernel_refuses_what_it_cannot_take(card):
+    """The narrower contract raises ValueError, never a fallback: hidden
+    widths past 8 slices of 64, n_out past 64, and an input so wide that the
+    block's shared memory passes the card's limit."""
+    dev = torch.device("cuda")
+    for dims in ((47, 516, 512, 512, 12), (47, 512, 512, 512, 68), (600, 512, 512, 512, 12)):
+        layers = [(torch.zeros(dims[i], dims[i + 1], device=dev), torch.zeros(dims[i + 1],
+                                                                               device=dev))
+                  for i in range(4)]
+        x = torch.zeros(4, dims[0], device=dev)
+        qj = torch.zeros(4, dims[-1], device=dev)
+        with pytest.raises(ValueError):
+            policy_pd(layers, 20.0, 1.5, x, qj, qj)
+
+
+@pytest.mark.cuda
+def test_policy_pd_kernel_attributes(card):
+    """No spills (nvcc -Xptxas -v), and the layout the design states at the
+    shipped widths: one block a SM (more than half the opt-in shared memory
+    of an H100) and at least 15 clusters of 8 blocks resident at once."""
+    from iterative_learning_nmpc_tpu_torch.ops import _build
+    from iterative_learning_nmpc_tpu_torch.ops.policy_pd import kernel_attributes
+
+    report = _build.ptxas_report(_build.CSRC / "policy_pd.cu")
+    assert {k: v[2:] for k, v in report.items()} == {"policy_pd_kernel": (0, 0)}
+    at = kernel_attributes((47, 512, 512, 512, 12), torch.device("cuda"))
+    assert at["local_bytes"] == 0 and at["dynamic_smem"] > 232448 // 2
+    assert at["max_active_clusters"] >= 15
 
 
 @pytest.mark.cuda
