@@ -22,7 +22,10 @@ device plant). Phases, one line each:
      its first step, the others at its end state), timed with CUDA events;
      lingram per block and per part of each block, with every row group on
      and with each row group alone (ops/lingram.gram_gate), and its line also carries its
-     three kernels' registers and local bytes (cudaFuncGetAttributes),
+     three kernels' registers and local bytes (cudaFuncGetAttributes);
+     riccati_rollout also at B=1 (one problem of the chain's end state, the
+     closed loop's replan shape), and its line carries the Riccati kernels'
+     registers, local bytes and resident blocks an SM,
   6. one RTI step of the kernel path against the plain path on the card,
   7. dynjac against its plain twin at the controller's shape (M=25) and at
      M=512*25, and one B=1 RTI step through the dynjac route and through
@@ -59,8 +62,8 @@ device plant). Phases, one line each:
      must not run); lingram against its twin at the chain's first step
      (as in phase 5), timed; both sweep kernels against
      their twins at its end state; the
-     fused kernel against the split chain on the same blocks, and both
-     timed at N = 25, 88, 100; one B=2 RTI step against the golden's,
+     fused kernel against the split chain on the same blocks, bit for bit,
+     and both timed at N = 25, 88, 100; one B=2 RTI step against the golden's,
  15. the riccati_mode="pallas" + linearize_mode="jacfwd" route (the jacfwd
      Gram as torch ops, the sweep kernel from P_N, the rollout kernel,
      dyncore): a B=256, N=25 chain of 3 steps from phase 4's perturbation,
@@ -76,9 +79,10 @@ device plant). Phases, one line each:
  18. the card's ceilings: fma_chain against its twin, then its fp32 FMA rate
      at full size (counters as above), and the HBM rate of x + 1.0 over 1 GiB,
  19. one Riccati node's factorize-and-solve under three thread mappings (a
-     block, a warp, a thread per node) on the reference probe's blocks at
-     B=1024, N=25, counters as above: each within 1e-5 of the twin and of
-     the block mapping, timed there and at B=256.
+     block running the production node stage of csrc/riccati.cuh, a warp,
+     a thread per node) on the reference probe's blocks at B=1024, N=25,
+     counters as above: each within 1e-5 of the twin and of the block
+     mapping, timed there and at B=256.
 
 It then prints one JSON line with the kernels' results (each with its
 bound: the larger of its operations over the card's fp32 rate, bf16
@@ -605,8 +609,9 @@ def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launc
         print(f"[cutover] B={B_LONG} N={n}: fused riccati_rollout {ms_f:.4f} ms, "
               f"riccati_sweep_terminal -> forward_rollout {ms_s:.4f} ms; split vs fused "
               f"rel {r:.2e} (<= 1e-5), bit-equal {same} ({card})", flush=True)
-        if not r <= 1e-5:
-            fail(f"the fused kernel and the split chain disagree at N={n}: {r:.2e}")
+        if not (r <= 1e-5 and same):
+            fail(f"the fused kernel and the split chain differ at N={n}: rel {r:.2e}, "
+                 f"bit-equal {same}")
 
     B2 = g["x0_rti"].shape[0]
     p2 = p_l.map(lambda x: x.expand((B2,) + x.shape[1:]).contiguous())
@@ -891,6 +896,8 @@ def main() -> None:
     from iterative_learning_nmpc_tpu_torch.ops.riccati import (
         forward_rollout, riccati_rollout, riccati_rollout_plain, riccati_sweep,
         riccati_sweep_terminal)
+    from iterative_learning_nmpc_tpu_torch.ops.riccati import (
+        kernel_attributes as riccati_attributes)
     from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec
     from iterative_learning_nmpc_tpu_torch.sim import device_sim
     from iterative_learning_nmpc_tpu_torch.solver.linearize import (
@@ -1043,13 +1050,26 @@ def main() -> None:
     dX_k, dU_k = riccati_rollout(*ric_args)
     dX_p, dU_p = riccati_rollout_plain(*ric_args)
     r_ric = max(rel(dU_k, dU_p), rel(dX_k, dX_p))
+    # one problem of the same state: the closed loop's replan shape
+    ric_b1 = tuple(a[:1].contiguous() if isinstance(a, torch.Tensor) else a for a in ric_args)
+    r_b1 = max(rel(a, b) for a, b in zip(riccati_rollout(*ric_b1), riccati_rollout_plain(*ric_b1)))
+    b1 = dict(rel_b1=r_b1, ms_b1=cuda_time_ms(lambda: riccati_rollout(*ric_b1), 50),
+              plain_ms_b1=cuda_time_ms(lambda: riccati_rollout_plain(*ric_b1), 3))
+    ric_attrs = riccati_attributes()
+    print(f"[riccati] B=1 N={N}: {b1['ms_b1']:.4f} ms vs plain {b1['plain_ms_b1']:.4f} ms, "
+          f"rel {r_b1:.2e}; registers, local bytes (stack and spills) a thread and resident "
+          "blocks an SM: " + "; ".join(f"{k} {r}, {lb} B, {nb}"
+                                        for k, (r, lb, nb) in ric_attrs.items()) + f" ({card})",
+          flush=True)
     record("riccati_rollout", "iterative_learning_nmpc_tpu_torch/csrc/riccati.cu",
            "iterative_learning_nmpc_tpu/ops/riccati_kernel.py:202",
            max(float((dU_k - dU_p).abs().max()), float((dX_k - dX_p).abs().max())),
-           r_ric <= REL_GATE, f"rel |d(dU, dX)| / (1 + |plain|) {r_ric:.2e} <= {REL_GATE}",
+           r_ric <= REL_GATE and r_b1 <= REL_GATE,
+           f"rel |d(dU, dX)| / (1 + |plain|) {r_ric:.2e}, at B=1 {r_b1:.2e}, <= {REL_GATE}",
            cuda_time_ms(lambda: riccati_rollout(*ric_args), 20),
            cuda_time_ms(lambda: riccati_rollout_plain(*ric_args), 3),
-           riccati_rollout_plain, ric_args, (dX_k, dU_k), algo_flops=algo_flops_riccati(BATCH, N))
+           riccati_rollout_plain, ric_args, (dX_k, dU_k), algo_flops=algo_flops_riccati(BATCH, N),
+           extra=dict(b1, kernel_attributes=ric_attrs))
 
     # dyncore on the line-search candidates (alphas 1, 0.25): M = 2 * 512 * 26
     alphas = torch.tensor(solver.opt.ls_alphas_steady, device=dev)

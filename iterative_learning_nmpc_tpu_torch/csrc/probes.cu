@@ -11,13 +11,15 @@
 //                      cycles of FMA latency hide behind the other chains
 //                      and the other resident warps; the caller sizes the
 //                      grid to whole waves of the 132 SMs.
-//   node_solve_block   one 128-thread block per (problem, node): the
-//                      production stage ric_factor_solve of riccati.cuh,
-//                      as kernels 3-6 run it (one thread per pivot, three
-//                      __syncthreads per pivot, 37 threads for the
-//                      triangular solves). Replaces _kernel_lanes of
-//                      scripts/proto_sublane_riccati.py (the production
-//                      TPU layout, :48, called at :70).
+//   node_solve_block   one block of RIC_THREADS threads per (problem, node):
+//                      the production node stage of riccati.cuh, as kernels
+//                      3, 4 and 6 run it (ric_factor on the factor warp,
+//                      ric_forward, ric_backward and ric_value_p on the
+//                      column threads, ric_value_tile on the tile threads;
+//                      three __syncthreads), the blocks read from global
+//                      memory instead of formed from P. Replaces
+//                      _kernel_lanes of scripts/proto_sublane_riccati.py
+//                      (the production TPU layout, :48, called at :70).
 //   node_solve_warp    one warp per (problem, node), matrices in shared
 //                      memory, each pivot resolved within the warp with
 //                      __syncwarp only: lane i owns row k + 1 + i of the
@@ -75,27 +77,59 @@ extern "C" int fma_chain_launch(const float* a, const float* b, float* out, int 
 }
 
 // ---- node_solve_block: the production stage ----
-__global__ void __launch_bounds__(128)
+extern __shared__ __align__(16) unsigned char nsb_smem[];
+
+__global__ void __launch_bounds__(RIC_THREADS)
 node_solve_block_kernel(const float* __restrict__ Qxx, const float* __restrict__ Quu,
                         const float* __restrict__ Qux, const float* __restrict__ qxp,
                         const float* __restrict__ qu, float* __restrict__ K,
                         float* __restrict__ kff, float* __restrict__ P,
                         float* __restrict__ p) {
-  __shared__ RicSmem s;
-  __shared__ float G[NU * NW];
+  RicSmem& s = *reinterpret_cast<RicSmem*>(nsb_smem);
+  float* G = s.in[0];   // [K | kff], 30 x 37
   const size_t m = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int e = tid; e < NU * NU; e += nt) s.L[e / NU][e % NU] = Quu[m * NU * NU + e];
-  for (int e = tid; e < NU * NX; e += nt) s.Wm[e / NX][e % NX] = Qux[m * NU * NX + e];
-  for (int i = tid; i < NU; i += nt) s.Wm[i][NX] = qu[m * NU + i];
-  for (int e = tid; e < NX * NX; e += nt) s.Qxx[e / NX][e % NX] = Qxx[m * NX * NX + e];
-  for (int i = tid; i < NX; i += nt) s.qxp[i] = qxp[m * NX + i];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c = tid - RIC_COL0, t = tid - RIC_TILE0;
+  int ti = 0, tj = 0;
+  float w[NU], lo[NU], up[NU];   // lo[3 a + b] = Qxx[i][j], up[3 a + b] = Qxx[j][i]
+  if (warp == 0) {
+    float a[NU];
+#pragma unroll
+    for (int j = 0; j < NU; ++j) a[j] = lane < NU ? Quu[(m * NU + lane) * NU + j] : 0.f;
+    ric_factor(a, lane, s.Lf, s.Lb[0], s.rs[0], s.dg);
+  } else if (warp < 3) {
+    if (c < NU) s.Wm[c][NX] = qu[m * NU + c];
+    if (c < NX) s.qxp[c] = qxp[m * NX + c];
+  } else {
+    if (t < RIC_TILES) {
+      ric_tile_of(t, ti, tj);
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+          const int i = 3 * ti + a, j = 3 * tj + b;
+          lo[3 * a + b] = Qxx[(m * NX + i) * NX + j];
+          up[3 * a + b] = Qxx[(m * NX + j) * NX + i];
+        }
+    }
+    for (int e = t; e < NU * NX; e += RIC_THREADS - RIC_TILE0)
+      s.Wm[e / NX][e % NX] = Qux[m * NU * NX + e];
+  }
   __syncthreads();
-  ric_factor_solve(s, G, tid, nt);   // ends with a __syncthreads
-  for (int e = tid; e < NU * NX; e += nt) K[m * NU * NX + e] = G[(e / NX) * NW + e % NX];
-  for (int i = tid; i < NU; i += nt) kff[m * NU + i] = G[i * NW + NX];
-  for (int e = tid; e < NX * NX; e += nt) P[m * NX * NX + e] = s.P[e / NX][e % NX];
-  for (int i = tid; i < NX; i += nt) p[m * NX + i] = s.pv[i];
+  const bool column = warp >= 1 && warp < 3 && c < NW;
+  if (column) ric_forward(w, c, s.Wm, s.Lf, s.rs[0]);
+  __syncthreads();
+  if (column) {
+    ric_backward(w, c, s.Lb[0], s.rs[0], G);
+    if (c < NX) ric_value_p(c, s.Wm, s.qxp, s.pv);
+  } else if (warp >= 3 && t < RIC_TILES) {
+    ric_value_tile(lo, up, ti, tj, s.Wm, s.P);
+  }
+  __syncthreads();
+  for (int e = tid; e < NU * NX; e += RIC_THREADS) K[m * NU * NX + e] = G[(e / NX) * NW + e % NX];
+  for (int i = tid; i < NU; i += RIC_THREADS) kff[m * NU + i] = G[i * NW + NX];
+  for (int e = tid; e < NX * NX; e += RIC_THREADS) P[m * NX * NX + e] = s.P[e / NX][e % NX];
+  for (int i = tid; i < NX; i += RIC_THREADS) p[m * NX + i] = s.pv[i];
 }
 
 // ---- node_solve_warp ----
@@ -274,8 +308,17 @@ node_solve_thread_kernel(const float* __restrict__ Qxx, const float* __restrict_
 extern "C" int node_solve_block_launch(const float* Qxx, const float* Quu, const float* Qux,
                                        const float* qxp, const float* qu, float* K,
                                        float* kff, float* P, float* p, int M, void* stream) {
-  node_solve_block_kernel<<<M, 128, 0, (cudaStream_t)stream>>>(Qxx, Quu, Qux, qxp, qu, K,
-                                                               kff, P, p);
+  static bool known[64] = {};   // the stage's shared memory, allowed once per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && !(dev < 64 && known[dev])) {
+    err = cudaFuncSetAttribute((const void*)node_solve_block_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(RicSmem));
+    if (err == cudaSuccess && dev < 64) known[dev] = true;
+  }
+  if (err != cudaSuccess) return (int)err;
+  node_solve_block_kernel<<<M, RIC_THREADS, sizeof(RicSmem), (cudaStream_t)stream>>>(
+      Qxx, Quu, Qux, qxp, qu, K, kff, P, p);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
 // The structured Riccati solve of the batched GN step, as four kernels over
-// the stages of riccati.cuh (terminal Gram, backward node, rollout):
+// the stages of riccati.cuh (terminal Gram, backward sweep, rollout):
 //
 //   riccati_rollout        terminal Gram + sweep + alpha = 1 rollout
 //                          -> dX (B, N+1, 36), dU (B, N, 30);
@@ -20,19 +20,31 @@
 //   forward_rollout        forward_rollout_lane_major (_forward_kernel).
 //
 // Bound on this card: the sequential dependence over nodes and, inside a
-// node, over the 30 Cholesky pivots (latency, not bytes or flops: ~0.1
-// MFLOP per node). Design: one 128-thread block per problem for the
-// sweeps, P (36x36) and the node's Q-function blocks in shared memory, the
-// 30x30 Cholesky right-looking with a pivot floor rsqrt(max(d, 1e-30)) as
-// in the TPU kernel, the triangular solves one thread per right-hand-side
-// column, and the K-free value update P <- Qxx - W^T W with
-// W = L^{-1} [Qux | qu]. The fused kernel writes the gains to a scratch
-// tensor and rolls out over them after a __syncthreads; the rollout kernel
-// runs the same stage with one warp per problem (36 lanes of state need no
-// more), four problems to a block.
+// node, over the 30 Cholesky pivots and the two triangular solves (latency,
+// not bytes or flops: ~0.1 MFLOP per node). Design: one block of
+// RIC_THREADS threads per problem for the sweeps, running riccati.cuh's
+// node stage (a factor warp with Quu in registers, column threads for the
+// solves, tile threads for Qxx and the value update, the next node's
+// blocks prefetched by cp.async into a double buffer; 49,280 bytes of
+// dynamic shared memory, four blocks an SM). The fused kernel writes the
+// gains to a scratch tensor and rolls out over them after the sweep's last
+// __syncthreads; the rollout kernel runs the same stage with one warp per
+// problem (36 lanes of state need no more), four problems to a block.
+#include <stdint.h>
+
 #include "riccati.cuh"
 
-__global__ void __launch_bounds__(128)
+extern __shared__ __align__(16) unsigned char ric_smem[];
+
+__device__ __forceinline__ RicProblem ric_problem(const float* Q, const float* R, const float* M,
+                                                  const float* qx, const float* ru,
+                                                  const float* d, float* gains, int b, int N) {
+  const size_t bn = (size_t)b * N;
+  return RicProblem{Q + bn * NX * NX, R + bn * NU * NU, M + bn * NX * NU, qx + bn * NX,
+                    ru + bn * NU,     d + bn * NX,      gains + bn * NU * NW};
+}
+
+__global__ void __launch_bounds__(RIC_THREADS, 4)
 riccati_rollout_kernel(const float* __restrict__ Qg, const float* __restrict__ Rg,
                        const float* __restrict__ Mg, const float* __restrict__ qxg,
                        const float* __restrict__ rug, const float* __restrict__ dg,
@@ -42,8 +54,8 @@ riccati_rollout_kernel(const float* __restrict__ Qg, const float* __restrict__ R
                        const float* __restrict__ tw, float* __restrict__ gains,
                        float* __restrict__ dXg, float* __restrict__ dUg, int N, float h,
                        float lm, float reg) {
+  RicSmem& s = *reinterpret_cast<RicSmem*>(ric_smem);
   __shared__ float Cs[N_CONSTS];
-  __shared__ RicSmem s;
   __shared__ float Jz[4][18];
   __shared__ float pz[4];
   __shared__ float dx[NX];
@@ -52,22 +64,18 @@ riccati_rollout_kernel(const float* __restrict__ Qg, const float* __restrict__ R
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  for (int i = tid; i < N_CONSTS; i += nt) Cs[i] = consts[i];
+  const RicProblem g = ric_problem(Qg, Rg, Mg, qxg, rug, dg, gains, b, N);
+  if (N > 0) ric_prefetch(g, N - 1, s, tid);
+  for (int i = tid; i < N_CONSTS; i += RIC_THREADS) Cs[i] = consts[i];
   __syncthreads();
   ric_terminal_gram(Cs, xNg + (size_t)b * NX, xrefg + (size_t)b * NX, peakg + b * 4, shg[b],
-                    tw, reg, Jz, pz, s, tid, nt);
-  for (int n = N - 1; n >= 0; --n) {
-    const size_t bn = (size_t)b * N + n;
-    ric_node(Qg + bn * NX * NX, Rg + bn * NU * NU, Mg + bn * NX * NU, qxg + bn * NX,
-             rug + bn * NU, dg + bn * NX, gains + bn * NU * NW, h, lm, s, tid, nt);
-  }
-  ric_rollout(gains + (size_t)b * N * NU * NW, dg + (size_t)b * N * NX, dx0g + (size_t)b * NX,
-              dXg + (size_t)b * (N + 1) * NX, dUg + (size_t)b * N * NU, dx, dxn, du, N, h, tid,
-              nt, BlockSync());
+                    tw, reg, Jz, pz, s, tid, RIC_THREADS);
+  ric_sweep(g, N, h, lm, s, tid);
+  ric_rollout(g.G, g.d, dx0g + (size_t)b * NX, dXg + (size_t)b * (N + 1) * NX,
+              dUg + (size_t)b * N * NU, dx, dxn, du, N, h, tid, RIC_THREADS, BlockSync());
 }
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(RIC_THREADS, 4)
 riccati_sweep_terminal_kernel(const float* __restrict__ Qg, const float* __restrict__ Rg,
                               const float* __restrict__ Mg, const float* __restrict__ qxg,
                               const float* __restrict__ rug, const float* __restrict__ dg,
@@ -75,44 +83,38 @@ riccati_sweep_terminal_kernel(const float* __restrict__ Qg, const float* __restr
                               const float* __restrict__ peakg, const float* __restrict__ shg,
                               const float* __restrict__ consts, const float* __restrict__ tw,
                               float* __restrict__ gains, int N, float h, float lm, float reg) {
+  RicSmem& s = *reinterpret_cast<RicSmem*>(ric_smem);
   __shared__ float Cs[N_CONSTS];
-  __shared__ RicSmem s;
   __shared__ float Jz[4][18];
   __shared__ float pz[4];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  for (int i = tid; i < N_CONSTS; i += nt) Cs[i] = consts[i];
+  const RicProblem g = ric_problem(Qg, Rg, Mg, qxg, rug, dg, gains, b, N);
+  if (N > 0) ric_prefetch(g, N - 1, s, tid);
+  for (int i = tid; i < N_CONSTS; i += RIC_THREADS) Cs[i] = consts[i];
   __syncthreads();
   ric_terminal_gram(Cs, xNg + (size_t)b * NX, xrefg + (size_t)b * NX, peakg + b * 4, shg[b],
-                    tw, reg, Jz, pz, s, tid, nt);
-  for (int n = N - 1; n >= 0; --n) {
-    const size_t bn = (size_t)b * N + n;
-    ric_node(Qg + bn * NX * NX, Rg + bn * NU * NU, Mg + bn * NX * NU, qxg + bn * NX,
-             rug + bn * NU, dg + bn * NX, gains + bn * NU * NW, h, lm, s, tid, nt);
-  }
+                    tw, reg, Jz, pz, s, tid, RIC_THREADS);
+  ric_sweep(g, N, h, lm, s, tid);
 }
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(RIC_THREADS, 4)
 riccati_sweep_kernel(const float* __restrict__ Qg, const float* __restrict__ Rg,
                      const float* __restrict__ Mg, const float* __restrict__ qxg,
                      const float* __restrict__ rug, const float* __restrict__ PNg,
                      const float* __restrict__ pNg, const float* __restrict__ dg,
                      float* __restrict__ gains, int N, float h, float lm) {
-  __shared__ RicSmem s;
+  RicSmem& s = *reinterpret_cast<RicSmem*>(ric_smem);
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  for (int e = tid; e < NX * NX; e += nt) s.P[e / NX][e % NX] = PNg[(size_t)b * NX * NX + e];
-  for (int i = tid; i < NX; i += nt) s.pv[i] = pNg[(size_t)b * NX + i];
-  __syncthreads();
-  for (int n = N - 1; n >= 0; --n) {
-    const size_t bn = (size_t)b * N + n;
-    ric_node(Qg + bn * NX * NX, Rg + bn * NU * NU, Mg + bn * NX * NU, qxg + bn * NX,
-             rug + bn * NU, dg + bn * NX, gains + bn * NU * NW, h, lm, s, tid, nt);
-  }
+  const RicProblem g = ric_problem(Qg, Rg, Mg, qxg, rug, dg, gains, b, N);
+  if (N > 0) ric_prefetch(g, N - 1, s, tid);
+  for (int e = tid; e < NX * NX; e += RIC_THREADS)
+    s.P[e / NX][e % NX] = PNg[(size_t)b * NX * NX + e];
+  for (int i = tid; i < NX; i += RIC_THREADS) s.pv[i] = pNg[(size_t)b * NX + i];
+  ric_sweep(g, N, h, lm, s, tid);   // its first __syncthreads publishes P_N, p_N
 }
 
 #define ROLL_WARPS 4
@@ -133,6 +135,33 @@ forward_rollout_kernel(const float* __restrict__ gains, const float* __restrict_
               N, h, threadIdx.x % 32, 32, WarpSync());
 }
 
+// The sweeps' dynamic shared memory (over the 48 KB default), allowed once
+// per device.
+static cudaError_t ric_configure() {
+  static bool known[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && known[dev])) return err;
+  const void* fns[3] = {(const void*)riccati_rollout_kernel,
+                        (const void*)riccati_sweep_terminal_kernel,
+                        (const void*)riccati_sweep_kernel};
+  for (const void* fn : fns) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(RicSmem));
+    if (err != cudaSuccess) return err;
+  }
+  if (dev < 64) known[dev] = true;
+  return cudaSuccess;
+}
+
+// The blocks the sweeps copy by 16-byte cp.async must be 16-byte aligned.
+static cudaError_t ric_check(const float* Q, const float* R, const float* M, const float* qx,
+                             const float* d) {
+  const uintptr_t any = (uintptr_t)Q | (uintptr_t)R | (uintptr_t)M | (uintptr_t)qx | (uintptr_t)d;
+  if (any & 15) return cudaErrorMisalignedAddress;
+  return ric_configure();
+}
+
 extern "C" int riccati_rollout_launch(const float* Q, const float* R, const float* M,
                                       const float* qx, const float* ru, const float* d,
                                       const float* dx0, const float* xN, const float* xref,
@@ -140,7 +169,9 @@ extern "C" int riccati_rollout_launch(const float* Q, const float* R, const floa
                                       const float* tw, float* gains, float* dX, float* dU,
                                       int B, int N, float h, float lm, float reg,
                                       void* stream) {
-  riccati_rollout_kernel<<<B, 128, 0, (cudaStream_t)stream>>>(
+  const cudaError_t err = ric_check(Q, R, M, qx, d);
+  if (err != cudaSuccess) return (int)err;
+  riccati_rollout_kernel<<<B, RIC_THREADS, sizeof(RicSmem), (cudaStream_t)stream>>>(
       Q, R, M, qx, ru, d, dx0, xN, xref, peak, sh, consts, tw, gains, dX, dU, N, h, lm, reg);
   return (int)cudaGetLastError();
 }
@@ -152,7 +183,9 @@ extern "C" int riccati_sweep_terminal_launch(const float* Q, const float* R, con
                                              const float* consts, const float* tw,
                                              float* gains, int B, int N, float h, float lm,
                                              float reg, void* stream) {
-  riccati_sweep_terminal_kernel<<<B, 128, 0, (cudaStream_t)stream>>>(
+  const cudaError_t err = ric_check(Q, R, M, qx, d);
+  if (err != cudaSuccess) return (int)err;
+  riccati_sweep_terminal_kernel<<<B, RIC_THREADS, sizeof(RicSmem), (cudaStream_t)stream>>>(
       Q, R, M, qx, ru, d, xN, xref, peak, sh, consts, tw, gains, N, h, lm, reg);
   return (int)cudaGetLastError();
 }
@@ -161,7 +194,9 @@ extern "C" int riccati_sweep_launch(const float* Q, const float* R, const float*
                                     const float* qx, const float* ru, const float* PN,
                                     const float* pN, const float* d, float* gains, int B, int N,
                                     float h, float lm, void* stream) {
-  riccati_sweep_kernel<<<B, 128, 0, (cudaStream_t)stream>>>(
+  const cudaError_t err = ric_check(Q, R, M, qx, d);
+  if (err != cudaSuccess) return (int)err;
+  riccati_sweep_kernel<<<B, RIC_THREADS, sizeof(RicSmem), (cudaStream_t)stream>>>(
       Q, R, M, qx, ru, PN, pN, d, gains, N, h, lm);
   return (int)cudaGetLastError();
 }
@@ -174,3 +209,40 @@ extern "C" int forward_rollout_launch(const float* gains, const float* d, const 
       gains, d, dx0, dX, dU, B, N, h);
   return (int)cudaGetLastError();
 }
+
+// The compiled kernels' registers a thread, local bytes a thread (stack
+// frame and spills) and resident blocks an SM at their launch shape:
+// riccati_rollout, riccati_sweep_terminal, riccati_sweep, forward_rollout in
+// turn, out[3 k .. 3 k + 2].
+extern "C" int riccati_attributes(int* out) {
+  cudaError_t err = ric_configure();
+  if (err != cudaSuccess) return (int)err;
+  const void* fns[4] = {(const void*)riccati_rollout_kernel,
+                        (const void*)riccati_sweep_terminal_kernel,
+                        (const void*)riccati_sweep_kernel, (const void*)forward_rollout_kernel};
+  for (int k = 0; k < 4; ++k) {
+    cudaFuncAttributes a;
+    err = cudaFuncGetAttributes(&a, fns[k]);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fns[k], k < 3 ? RIC_THREADS : 32 * ROLL_WARPS, k < 3 ? sizeof(RicSmem) : 0);
+    if (err != cudaSuccess) return (int)err;
+    out[3 * k] = a.numRegs;
+    out[3 * k + 1] = (int)a.localSizeBytes;
+    out[3 * k + 2] = blocks;
+  }
+  return 0;
+}
+
+#ifdef RIC_TRACE
+// The trace buffers: n stamps (RIC_STAMPS per (block, node), block-major)
+// and n spans (4 per block: clock64 and %globaltimer at the sweep's start,
+// then at its end).
+extern "C" int ric_read_stamps(long long* out, int n) {
+  return (int)cudaMemcpyFromSymbol(out, ric_stamps, (size_t)n * 8);
+}
+extern "C" int ric_read_spans(long long* out, int n) {
+  return (int)cudaMemcpyFromSymbol(out, ric_spans, (size_t)n * 8);
+}
+#endif

@@ -8,8 +8,12 @@ the solver kernels' minimal work.
   Riccati node's factorize-and-solve under three thread mappings (a block,
   a warp, a thread per node; replaces ``_kernel_lanes`` and
   ``_kernel_sublane`` of ``scripts/proto_sublane_riccati.py``). The block
-  mapping runs ``ric_factor_solve`` of ``csrc/riccati.cuh``, the stage that
-  kernels 3-6 run. All three compute ``node_solve_plain``'s function.
+  mapping runs the node stage of ``csrc/riccati.cuh`` that kernels 3, 4
+  and 6 run, one block of ``RIC_THREADS`` (192) threads a node:
+  ``ric_factor`` on the factor warp; ``ric_forward``, ``ric_backward`` and
+  ``ric_value_p`` on the column threads; ``ric_value_tile`` on the tile
+  threads. The warp and thread mappings are the baselines it was chosen
+  against. All three compute ``node_solve_plain``'s function.
 
 CPU tensors take the twins; CUDA tensors launch the kernels or raise.
 """
@@ -209,8 +213,8 @@ def _node_solve(name: str, launch: str, args, batch_inner: bool):
 
 
 def node_solve_block(Qxx, Quu, Qux, qxp, qu):
-    """One 128-thread block per node (the production stage); same contract
-    as node_solve_plain."""
+    """One 192-thread block per node (the production node stage); same
+    contract as node_solve_plain."""
     if Qxx.device.type == "cpu":
         return node_solve_plain(Qxx, Quu, Qux, qxp, qu)
     out = _node_solve("node_solve_block", "node_solve_block_launch",

@@ -22,6 +22,8 @@ every product with A/B is a block scale-add. CPU tensors take the
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..ocp.problem import NU, NX, Weights, terminal_residual
@@ -157,15 +159,17 @@ def _takes_twin(name: str, t: torch.Tensor) -> bool:
 
 
 def _checked(name: str, dev, shapes: dict, tensors: dict) -> dict:
-    """The tensors, contiguous, after checking each is float32 of its shape
-    on ``dev``."""
+    """The tensors, contiguous and 16-byte aligned (the sweeps copy the GN
+    blocks by 16-byte cp.async; a view that starts inside its storage is
+    copied), after checking each is float32 of its shape on ``dev``."""
     out = {}
     for k, shape in shapes.items():
         t = tensors[k]
         if t.dtype != torch.float32 or tuple(t.shape) != shape or t.device != dev:
             raise ValueError(f"{name}: {k} must be float32 {shape} on "
                              f"{dev}, got {t.dtype} {tuple(t.shape)} {t.device}")
-        out[k] = t.contiguous()
+        t = t.contiguous()
+        out[k] = t if t.data_ptr() % 16 == 0 else t.clone()
     return out
 
 
@@ -311,3 +315,14 @@ def forward_rollout(h: float, gains, defects, dx0):
 
 
 forward_rollout.launches = 0
+
+
+def kernel_attributes() -> dict:
+    """{kernel: (registers, local bytes, resident blocks an SM)} of the four
+    compiled kernels at their launch shapes (cudaFuncGetAttributes, local
+    bytes being the stack frame and spills;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = (ctypes.c_int * 12)()
+    _build.check(_build.library().riccati_attributes(out), "riccati_attributes")
+    names = ("riccati_rollout", "riccati_sweep_terminal", "riccati_sweep", "forward_rollout")
+    return {k: tuple(out[3 * i:3 * i + 3]) for i, k in enumerate(names)}

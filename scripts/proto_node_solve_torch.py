@@ -6,8 +6,10 @@ layouts of the same solve).
 Three mappings of Cholesky(Quu) -> W = L^-1 [Qux | qu] -> Z = L^-T W ->
 P = Qxx - W^T W (``ops/probes.py``, ``csrc/probes.cu``):
 
-- block:  one 128-thread block per (problem, node): ``ric_factor_solve`` of
-          csrc/riccati.cuh, the stage that kernels 3-6 run;
+- block:  one 192-thread block per (problem, node): the node stage of
+          csrc/riccati.cuh that kernels 3, 4 and 6 run (a factor warp with
+          Quu in registers, column threads for the two triangular solves,
+          tile threads for the value update);
 - warp:   one warp per (problem, node), __syncwarp only;
 - thread: one thread per (problem, node) over the batch-innermost layout
           (d1, d2, B*N), laid out beforehand so that the timing covers the

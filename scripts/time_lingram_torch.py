@@ -69,8 +69,10 @@ def cases(root, dev):
     return out
 
 
-def chains(root, dev) -> dict:
-    """{label: numbers} of the B=512, N=25 and B=256, N=100 warm RTI chains."""
+def chains(root, dev, kernel: str = "lingram") -> dict:
+    """{label: numbers} of the B=512, N=25 and B=256, N=100 warm RTI chains;
+    the share of the busy time is that of the CUDA kernels whose name holds
+    ``kernel``."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -108,12 +110,12 @@ def chains(root, dev) -> dict:
             us = getattr(e, "device_time_total", None)
             us = e.cuda_time_total if us is None else us
             busy += us / 1e3 / 3
-            if "lingram" in e.key:
+            if kernel in e.key:
                 lin += us / 1e3 / 3
         out[label] = {"solves_per_s": solves, "busy_ms_per_step": busy,
-                      "profiled_wall_ms_per_step": wall, "lingram_ms_per_step": lin}
+                      "profiled_wall_ms_per_step": wall, f"{kernel}_ms_per_step": lin}
         print(f"[chain {label}] {solves:.1f} solves/s; profiled: device busy {busy:.4f} ms of "
-              f"{wall:.4f} ms wall per step (idle {1 - busy / wall:.3f}), lingram "
+              f"{wall:.4f} ms wall per step (idle {1 - busy / wall:.3f}), {kernel} "
               f"{lin:.4f} ms ({lin / busy:.3f} of busy)", flush=True)
     return out
 

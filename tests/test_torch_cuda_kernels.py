@@ -36,6 +36,7 @@ from iterative_learning_nmpc_tpu_torch.ops.riccati import (
     riccati_sweep_terminal_plain, terminal_gram)
 
 from test_torch_lingram_structure import go2_solver, stress_case
+from test_torch_riccati_stage import BACKWARD_GATE, H_STEP, backward_error, near_floor_case
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "data", "go2_trot_n25_golden.npz")
@@ -332,19 +333,24 @@ def horizons(card):
     return out
 
 
-def _sweep_inputs(solver, X, U, p, B, seed):
+def _sweep_inputs(solver, X, U, p, B, seed, n=None):
     """B copies with the interior states moved by 5e-4: the sweeps'
     arguments (spec, w, h, lm, reg_e, Q, R, M, qx, ru, defects), the
-    terminal inputs and dx0."""
+    terminal inputs and dx0; with ``n``, the horizon cut to its first n
+    nodes (terminal state X[:, n])."""
     gen = torch.Generator().manual_seed(seed)
     Xb = X.repeat(B, 1, 1)
     Xb[:, 1:] += 5e-4 * torch.randn(Xb[:, 1:].shape, generator=gen).to(X.device)
     Ub = U.repeat(B, 1, 1)
     pb = p.map(lambda t: t.expand((B,) + t.shape[1:]).contiguous())
     blocks = lingram(solver.spec, solver.weights, Xb, Ub, pb)
+    defects = solver._defects(Xb, Ub, pb)
+    n = solver.N if n is None else n
     args = (solver.spec, solver.weights, solver.dt_nodes, float(solver.opt.lm_reg),
-            float(solver.cost.reg_eps_e), *blocks, solver._defects(Xb, Ub, pb))
-    term = (Xb[:, -1], pb.peak[:, :, -1], pb.base_ref_e, pb.joint_ref, pb.step_height)
+            float(solver.cost.reg_eps_e),
+            *(x[:, :n].contiguous() for x in (*blocks, defects)))
+    term = (Xb[:, n].contiguous(), pb.peak[:, :, n].contiguous(), pb.base_ref_e,
+            pb.joint_ref, pb.step_height)
     return args, term, pb.x0 - Xb[:, 0]
 
 
@@ -368,12 +374,14 @@ def _assert_same_step(gains_k, gains_p, gains64, h, defects, dx0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 33, 256])
-@pytest.mark.parametrize("N", [25, 100])
+@pytest.mark.parametrize("N", [1, 25, 89, 100])
 def test_riccati_sweep_kernels_match_plain(horizons, N, B):
     """Kernels 4 (terminal Gram + sweep), 6 (sweep from P_N) and 5 (rollout)
-    against their twins."""
-    solver, X, U, p = horizons[N]
-    args, term, dx0 = _sweep_inputs(solver, X, U, p, B, seed=N + B)
+    against their twins, on the N=25 golden horizon and on the N=100 one cut
+    to its first N nodes (one node; one past the fused route's 88; the
+    whole)."""
+    solver, X, U, p = horizons[25 if N == 25 else 100]
+    args, term, dx0 = _sweep_inputs(solver, X, U, p, B, seed=N + B, n=N)
     spec, w, h, lm, reg = args[:5]
     blocks, defects = args[5:10], args[10]
     n4, n5, n6 = (riccati_sweep_terminal.launches, forward_rollout.launches,
@@ -397,15 +405,90 @@ def test_riccati_sweep_kernels_match_plain(horizons, N, B):
 
 
 @pytest.mark.cuda
-def test_fused_kernel_equals_split_chain(horizons):
-    """Kernel 3 against kernels 4 -> 5 at N=100, B=256: the same stages of
-    csrc/riccati.cuh in the same order."""
+@pytest.mark.parametrize("N", [1, 25, 100])
+def test_fused_kernel_equals_split_chain(horizons, N):
+    """Kernel 3 against kernels 4 -> 5 at B=256 on the N=100 golden horizon
+    cut to N nodes: the same stages of csrc/riccati.cuh with one thread
+    mapping, so bit for bit."""
     solver, X, U, p = horizons[100]
-    args, term, dx0 = _sweep_inputs(solver, X, U, p, 256, seed=7)
+    args, term, dx0 = _sweep_inputs(solver, X, U, p, 256, seed=7, n=N)
     fused = riccati_rollout(*args, dx0, *term)
     split = forward_rollout(args[2], riccati_sweep_terminal(*args, *term), args[10], dx0)
     for a, b in zip(split, fused):
-        assert _max_rel(a, b) <= 1e-5
+        assert torch.equal(a, b)
+
+
+def _step_rel(h, gains, g64, defects, dx0):
+    """rel |d(dU, dX)| of the step ``gains`` give (rolled out in float64) to
+    the float64 gains' step."""
+    def step(g):
+        return forward_rollout_plain(h, g.double(), defects.double(), dx0.double())
+
+    return max(_max_rel(a, b) for a, b in zip(step(gains), step(g64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 512])
+@pytest.mark.parametrize("N", [1, 25])
+def test_riccati_rollout_kernel_shapes(horizons, N, B):
+    """Kernel 3 at one problem (the replan), a ragged batch and the main
+    path's batch, on the N=25 golden horizon and on its first node alone:
+    the step no further from the float64 sweep's step than twice the fp32
+    twin's, plus 1e-4. Held to the float64 twin, as the sweeps are: on
+    these inputs the fp32 twin itself is up to 2.6e-3 from the float64 step
+    at B=512 (8e-3 cut to one node), more than the bench's 1e-3 between two
+    fp32 solvers (test_riccati_kernel_matches_plain keeps that gate at
+    B=3)."""
+    solver, X, U, p = horizons[25]
+    args, term, dx0 = _sweep_inputs(solver, X, U, p, B, seed=N + B, n=N)
+    spec, w, h, lm, reg = args[:5]
+    blocks, defects = args[5:10], args[10]
+    n0 = riccati_rollout.launches
+    k = riccati_rollout(*args, dx0, *term)
+    torch.cuda.synchronize()
+    assert riccati_rollout.launches == n0 + 1
+    assert k[0].shape == (B, N + 1, 36) and k[1].shape == (B, N, 30)
+    pl = riccati_rollout_plain(*args, dx0, *term)
+    P_N, p_N = terminal_gram(spec, w, reg, *term)
+    g64 = riccati_sweep_plain(h, lm, *(x.double() for x in (*blocks, P_N, p_N, defects)))
+    s64 = forward_rollout_plain(h, g64, defects.double(), dx0.double())
+    r_k, r_p = (max(_max_rel(a.double(), b) for a, b in zip(o, s64)) for o in (k, pl))
+    assert r_k <= 2.0 * r_p + 1e-4
+
+
+@pytest.mark.cuda
+def test_riccati_sweep_near_floor_pivot(card):
+    """Kernel 6 on one node whose Quu has one eigenvalue at ~1e-6 of the rest
+    (tests/test_torch_riccati_stage.py's near_floor_case, B=64): finite,
+    and its gains solve the node's system in float64 to a normwise
+    backward error of 30 unit roundoffs, as the fp32 twin's do (the
+    forward error, ~1e-1 for any fp32 solver at cond(Quu) ~1e7, says
+    nothing)."""
+    dev = torch.device("cuda")
+    blocks, P_N, p_N, d, _ = near_floor_case(64, 2)
+    on = [x.to(dev) for x in (*blocks, P_N, p_N, d)]
+    g = riccati_sweep(H_STEP, 0.0, *on)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(g).all())
+    assert backward_error(blocks, 0.0, g.cpu()) <= BACKWARD_GATE
+    assert backward_error(blocks, 0.0, riccati_sweep_plain(H_STEP, 0.0, *on).cpu()) <= \
+        BACKWARD_GATE
+
+
+@pytest.mark.cuda
+def test_riccati_kernel_attributes(card):
+    """The layout the node stage's design states: four blocks of the sweeps
+    resident an SM (B=512 in one wave over 132 SMs), and the stage alone
+    (the node-solve probe's block mapping, no register cap) without local
+    memory (nvcc -Xptxas -v)."""
+    from iterative_learning_nmpc_tpu_torch.ops import _build
+    from iterative_learning_nmpc_tpu_torch.ops.riccati import kernel_attributes
+
+    at = kernel_attributes()
+    for k in ("riccati_rollout", "riccati_sweep_terminal", "riccati_sweep"):
+        assert at[k][2] >= 4, (k, at[k])
+    report = _build.ptxas_report(_build.CSRC / "probes.cu")
+    assert report["node_solve_block_kernel"][1:] == (0, 0, 0)
 
 
 @pytest.mark.cuda
