@@ -25,7 +25,11 @@ device plant). Phases, one line each:
      three kernels' registers and local bytes (cudaFuncGetAttributes);
      riccati_rollout also at B=1 (one problem of the chain's end state, the
      closed loop's replan shape), and its line carries the Riccati kernels'
-     registers, local bytes and resident blocks an SM,
+     registers, local bytes and resident blocks an SM; dyncore also at the
+     shapes of its other paths (M = 52, the B=1 replan; 13,312, the B=256
+     datagen; 51,712, the N=100 chain), timed eager and by CUDA-graph
+     replay, and its line carries its registers, local bytes (0, or the
+     run fails) and resident blocks an SM,
   6. one RTI step of the kernel path against the plain path on the card,
   7. dynjac against its plain twin at the controller's shape (M=25) and at
      M=512*25, and one B=1 RTI step through the dynjac route and through
@@ -88,7 +92,7 @@ It then prints one JSON line with the kernels' results (each with its
 bound: the larger of its operations over the card's fp32 rate, bf16
 tensor-core work over the dense bf16 rate, and its bytes over the memory
 rate, counted on this run's inputs; ``bound_measured_ms``, the same counts
-over the ceilings of phase 18; for kernels 2, 3 and 6 ``bound_algo_ms``,
+over the ceilings of phase 18; for kernels 1, 2, 3 and 6 ``bound_algo_ms``,
 the hand count of the minimal work over the same bytes) and, last, the
 result line. Any failed check exits non-zero without that line; there is
 no CPU fallback.
@@ -119,6 +123,8 @@ POLICY_KP, POLICY_KD = 20.0, 1.5
 # the long-horizon and jacfwd routes (phases 14-15)
 B_LONG, LONG_STEPS, CUTOVER_NS = 256, 5, (25, 88, 100)
 B_JACFWD, JACFWD_STEPS = 256, 3
+# dyncore's M at the B=1 replan, the B=256 datagen, the B=512 chain, N=100
+DYNCORE_MS = (52, 2 * 256 * 26, 2 * 512 * 26, 2 * 256 * 101)
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores (every
 # kernel here but policy_pd_bf16 is fp32 scalar code), dense bf16 on the
 # tensor cores (policy_pd_bf16's layers 2-4), and HBM3
@@ -250,6 +256,27 @@ def standing_state(spec):
     return q0.astype(np.float64), np.zeros(18)
 
 
+def noisy_starts(q0, n, rng):
+    """n standing starts (n, 18): q0 with joint noise N(0, NOISE^2) on all
+    but env 0."""
+    import numpy as np
+
+    qb = np.tile(np.reshape(q0, (1, -1)), (n, 1))
+    qb[1:, 6:] += rng.normal(0, NOISE, (n - 1, 12)).astype(np.float32)
+    return qb
+
+
+def datagen_batch(q0, n, rng):
+    """Phase 12's expert-datagen batch: n noisy standing starts at rest (n,
+    36) and commands (n, 3), the forward speed uniform in [0, V_MAX)."""
+    import numpy as np
+
+    x0b = np.concatenate([noisy_starts(q0, n, rng), np.zeros((n, 18), np.float32)], 1)
+    vd = np.zeros((n, 3), np.float32)
+    vd[:, 0] = rng.uniform(0.0, V_MAX, n)
+    return x0b, vd
+
+
 class PlantData:
     """What LocomotionMPC.compute_torques_dof reads: time, qpos, qvel in
     MuJoCo layout."""
@@ -283,19 +310,13 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
         fail(f"the standing pose differs from the learning golden's by {dq0:.2e}")
     rng = np.random.default_rng(SEED)
 
-    def noisy_starts(n):
-        """n standing starts (n, 18), joint noise N(0, 0.03^2) on all but env 0."""
-        qb = np.tile(gold_r["q0"][:1], (n, 1))
-        qb[1:, 6:] += rng.normal(0, NOISE, (n - 1, 12)).astype(np.float32)
-        return qb
-
     def zero_counters():
         for k in kernels:
             k.launches = 0
         torch.cuda.synchronize()
 
     # ---- 11. batched policy rollout ----
-    q0b = noisy_starts(B_ENV)
+    q0b = noisy_starts(gold_r["q0"][:1], B_ENV, rng)
     vd = np.tile(np.array([[V_DES, 0.0, 0.0]], np.float32), (B_ENV, 1))
     rollout = device_sim.make_batched_policy_rollout(spec_d, (net, norm), T_POLICY, device=dev)
     zero_counters()
@@ -330,9 +351,7 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
         fail("policy rollout env 0 disagrees with the JAX golden")
 
     # ---- 12. on-device expert datagen ----
-    x0b = np.concatenate([noisy_starts(B_ENV), np.zeros((B_ENV, 18), np.float32)], 1)
-    vd = np.zeros((B_ENV, 3), np.float32)
-    vd[:, 0] = rng.uniform(0.0, V_MAX, B_ENV)
+    x0b, vd = datagen_batch(gold_r["q0"][:1], B_ENV, rng)
     datagen = make_batched_mpc_rollout(spec_d, n_intervals=N_DATAGEN, device=dev)
     zero_counters()
     t0 = time.perf_counter()
@@ -404,7 +423,8 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
            extra=dict(times, kernel_attributes=attrs))
 
     # ---- 13. SafeDAgger mode ----
-    x0b = np.concatenate([noisy_starts(B_ENV), np.zeros((B_ENV, 18), np.float32)], 1)
+    x0b = np.concatenate([noisy_starts(gold_r["q0"][:1], B_ENV, rng),
+                          np.zeros((B_ENV, 18), np.float32)], 1)
     vd = np.tile(np.array([[V_DES, 0.0, 0.0]], np.float32), (B_ENV, 1))
     dagger = make_batched_mpc_rollout(
         spec_d, n_intervals=N_DAGGER, policy=(net, norm), delay_steps=DELAY_STEPS,
@@ -886,13 +906,15 @@ def main() -> None:
     from iterative_learning_nmpc_tpu_torch.mpc.controller import LocomotionMPC
     from iterative_learning_nmpc_tpu_torch.ops import _build
     from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore, dyncore_plain
+    from iterative_learning_nmpc_tpu_torch.ops.dyncore import (
+        kernel_attributes as dyncore_attributes)
     from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain
     from iterative_learning_nmpc_tpu_torch.ops.lingram import (
         gate_failures, gate_summary, gram_gate, kernel_attributes, lingram, lingram_plain)
     from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd, policy_pd_bf16
     from iterative_learning_nmpc_tpu_torch.ops.probes import (
-        algo_flops_lingram, algo_flops_riccati, fma_chain, node_solve_block, node_solve_thread,
-        node_solve_warp)
+        algo_flops_dyncore, algo_flops_lingram, algo_flops_riccati, fma_chain, node_solve_block,
+        node_solve_thread, node_solve_warp)
     from iterative_learning_nmpc_tpu_torch.ops.riccati import (
         forward_rollout, riccati_rollout, riccati_rollout_plain, riccati_sweep,
         riccati_sweep_terminal)
@@ -903,7 +925,7 @@ def main() -> None:
     from iterative_learning_nmpc_tpu_torch.solver.linearize import (
         cost_dual, dyncore_inputs, lingram_structured)
     from iterative_learning_nmpc_tpu_torch.solver.sqp import TrajOptSolver
-    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms, graph_time_ms
 
     t_start = time.perf_counter()
     kernels = (dyncore, lingram, riccati_rollout, dynjac, policy_pd,
@@ -1079,15 +1101,38 @@ def main() -> None:
     pc = pe.map(lambda t: t.repeat((nA,) + (1,) * (t.dim() - 1)))
     Xm, Am, Fm = (t.contiguous() for t in dyncore_inputs(Xc, Uc, pc))
     out_k, out_p = dyncore(spec, Xm, Am, Fm), dyncore_plain(spec, Xm, Am, Fm)
-    # the two reassociate fp32 sums differently: 1e-5 of the output scale
+    # the two reassociate fp32 sums differently (the kernel sums the four
+    # legs' wrenches across lanes): 1e-5 of the output scale
     err_dc = float((out_k - out_p).abs().max())
     bound_dc = 1e-5 * max(1.0, float(out_p.abs().max()))
+    # the same at the shapes of its other paths: the B=1 replan, the B=256
+    # datagen, the N=100 chain (the candidates' rows, repeated past M=26,624)
+    rows = [torch.cat([t, t]) for t in (Xm, Am, Fm)]
+    dc_by_m = {}
+    for M in DYNCORE_MS:
+        a = (spec, *(t[:M].contiguous() for t in rows))
+        ref = dyncore_plain(*a)
+        e = float((dyncore(*a) - ref).abs().max())
+        dc_by_m[M] = dict(ms=cuda_time_ms(lambda a=a: dyncore(*a), 50),
+                          device_ms=graph_time_ms(lambda a=a: dyncore(*a)), max_abs_err=e,
+                          ok=e <= 1e-5 * max(1.0, float(ref.abs().max())))
+    dc_attrs = dyncore_attributes()
+    regs, local, blocks = dc_attrs["dyncore_kernel"]
+    print(f"[dyncore] {regs} registers, {local} B local a thread, {blocks} blocks an SM; "
+          + ", ".join(f"M={M} {r['ms']:.4f} ms eager, {r['device_ms']:.4f} device, err "
+                      f"{r['max_abs_err']:.2e}{'' if r['ok'] else ' OUTSIDE'}"
+                      for M, r in dc_by_m.items()) + f" ({card})", flush=True)
+    if local > 0:
+        fail(f"dyncore uses {local} B of local memory a thread")
     record("dyncore", "iterative_learning_nmpc_tpu_torch/csrc/dyncore.cu",
            "iterative_learning_nmpc_tpu/ops/dynjac_kernel.py:599", err_dc,
-           err_dc <= bound_dc, f"<= 1e-5 * max(1, |out|) = {bound_dc:.3e}, M={Xm.shape[0]}",
+           err_dc <= bound_dc and all(r["ok"] for r in dc_by_m.values()),
+           f"<= 1e-5 * max(1, |out|) = {bound_dc:.3e}, M={Xm.shape[0]}; also at M = "
+           + ", ".join(map(str, DYNCORE_MS)),
            cuda_time_ms(lambda: dyncore(spec, Xm, Am, Fm), 50),
            cuda_time_ms(lambda: dyncore_plain(spec, Xm, Am, Fm), 5),
-           dyncore_plain, (spec, Xm, Am, Fm), out_k)
+           dyncore_plain, (spec, Xm, Am, Fm), out_k, algo_flops=algo_flops_dyncore(Xm.shape[0]),
+           extra=dict(kernel_attributes=dc_attrs, by_M=dc_by_m))
 
     # ---- 6. one RTI step: kernel path vs plain path, both on the card ----
     class PlainSolver(TrajOptSolver):

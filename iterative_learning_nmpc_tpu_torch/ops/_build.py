@@ -35,6 +35,7 @@ _F = ctypes.c_float
 # C entry points, each returning an int: every pointer, and the stream, as c_void_p
 SIGNATURES = {
     "dyncore_launch": [_P, _P, _P, _P, _P, _I, _P],
+    "dyncore_attributes": [_P],
     "lingram_launch": [_P] * 11 + [_I, _I, _P],
     "lingram_row_floats": [],
     "lingram_attributes": [_P],

@@ -3,16 +3,19 @@
 
 Replaces the JAX package's ``ops/dynjac_kernel.py:dyncore_pallas``
 (``_dyncore_kernel``). CPU tensors take ``dyncore_plain``; CUDA tensors
-launch the kernel or raise.
+launch the kernel or raise. The kernel runs a leg per lane, four lanes an
+evaluation; its rows pass through shared memory.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..models import dynamics as dyn
 from ..robots.spec import RobotSpec
 from . import _build
-from .layout import robot_consts
+from .layout import cached_robot_consts
 
 N_OUT = 42   # p_feet 12 | v_feet 12 | tau 18
 
@@ -48,7 +51,7 @@ def dyncore(spec: RobotSpec, X: torch.Tensor, A: torch.Tensor,
     _check("dyncore", "Fe", Fe, (M, 12))
     if A.device != X.device or Fe.device != X.device:
         raise ValueError("dyncore: X, A, Fe must share one device")
-    consts = robot_consts(spec.to(X.device))
+    consts = cached_robot_consts(spec, X.device)
     out = torch.empty(M, N_OUT, dtype=torch.float32, device=X.device)
     if M == 0:
         return out
@@ -62,3 +65,12 @@ def dyncore(spec: RobotSpec, X: torch.Tensor, A: torch.Tensor,
 
 
 dyncore.launches = 0
+
+
+def kernel_attributes() -> dict:
+    """{"dyncore_kernel": (registers, local bytes, resident blocks an SM)}
+    (cudaFuncGetAttributes, local bytes being the stack frame and spills;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.library().dyncore_attributes(out), "dyncore_attributes")
+    return {"dyncore_kernel": tuple(out)}

@@ -14,7 +14,7 @@ import torch
 from ..robots.spec import RobotSpec
 from . import _build
 from .dyncore import N_OUT, _check, dyncore_plain
-from .layout import robot_consts
+from .layout import cached_robot_consts
 
 N_DIR = 54   # Jacobian columns: x 36 (q 18, v 18), a 18
 
@@ -45,7 +45,7 @@ def dynjac(spec: RobotSpec, X: torch.Tensor, A: torch.Tensor, Fe: torch.Tensor):
     _check("dynjac", "Fe", Fe, (M, 12))
     if A.device != X.device or Fe.device != X.device:
         raise ValueError("dynjac: X, A, Fe must share one device")
-    consts = robot_consts(spec.to(X.device))
+    consts = cached_robot_consts(spec, X.device)
     prim = torch.empty(M, N_OUT, dtype=torch.float32, device=X.device)
     J = torch.empty(M, N_OUT, N_DIR, dtype=torch.float32, device=X.device)
     if M == 0:

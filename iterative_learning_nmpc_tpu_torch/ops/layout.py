@@ -7,10 +7,12 @@ them never waits for the device.
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from ..ocp.problem import OCPParams, Weights
-from ..robots.spec import RobotSpec
+from ..robots.spec import _TENSOR_FIELDS, RobotSpec
 
 # robot constants, the layout of the JAX package's ops/dynjac_kernel
 # _make_consts: leg joint offsets, axes, masses, CoMs, inertias, foot
@@ -35,6 +37,31 @@ def robot_consts(spec: RobotSpec) -> torch.Tensor:
     ]).to(torch.float32).contiguous()
     assert c.numel() == N_CONSTS
     return c
+
+
+_ROBOT_CONSTS = weakref.WeakKeyDictionary()    # spec -> {device: (versions, consts)}
+
+
+def cached_robot_consts(spec: RobotSpec, device: torch.device) -> torch.Tensor:
+    """robot_consts(spec) on ``device``, as the kernel wrappers pass it:
+    built on the spec's first call on that device and kept (rebuilt on
+    every call it was most of a wrapper's host time). After a spec tensor
+    changed in place the kept buffer is refilled in place, so a CUDA graph
+    that captured it reads the new values. Under capture a kept, current
+    buffer is returned as it is; a missing or stale one is built in the
+    graph's pool and not kept."""
+    versions = tuple(getattr(spec, f)._version for f in _TENSOR_FIELDS)
+    per_device = _ROBOT_CONSTS.setdefault(spec, {})
+    hit = per_device.get(device)
+    if hit is not None and hit[0] == versions:
+        return hit[1]
+    consts = robot_consts(spec.to(device))
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return consts
+    if hit is not None:
+        consts = hit[1].copy_(consts)
+    per_device[device] = (versions, consts)
+    return consts
 
 
 def weight_consts(spec: RobotSpec, w: Weights) -> torch.Tensor:

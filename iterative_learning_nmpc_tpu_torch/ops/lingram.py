@@ -22,7 +22,7 @@ from ..ocp.problem import NU, NX, OCPParams, Weights
 from ..robots.spec import RobotSpec
 from ..solver.linearize import gn_blocks_jacfwd
 from . import _build
-from .layout import node_params, robot_consts, weight_consts
+from .layout import cached_robot_consts, node_params, weight_consts
 
 
 def lingram_plain(spec: RobotSpec, w: Weights, X: torch.Tensor, U: torch.Tensor,
@@ -47,8 +47,8 @@ def lingram(spec: RobotSpec, w: Weights, X: torch.Tensor, U: torch.Tensor,
     Xn = X[:, :-1].reshape(B * N, NX).contiguous()
     Un = U.reshape(B * N, NU).contiguous()
     par = node_params(p, N)
-    spec = spec.to(dev)
-    consts, wts = robot_consts(spec), weight_consts(spec, w.to(dev))
+    consts = cached_robot_consts(spec, dev)
+    wts = weight_consts(spec.to(dev), w.to(dev))
     f32 = dict(dtype=torch.float32, device=dev)
     Q = torch.empty(B, N, NX, NX, **f32)
     R = torch.empty(B, N, NU, NU, **f32)

@@ -80,6 +80,25 @@ def algo_flops_riccati(B: int = 512, N: int = 25, rollout: bool = True) -> float
     return 2.0 * (sweep + roll) * B * N
 
 
+def algo_flops_dyncore(M: int = 2 * 512 * 26) -> float:
+    """Per-evaluation algorithmic MACs of FK + foot velocities + RNEA, x2
+    for FLOPs (csrc/dyncore.cu counted once per evaluation, none of its
+    lanes' repeats of the trunk's terms), over M evaluations.
+
+    - trunk frame, Euler-rate map, w_b, dw_b:                       ~60
+    - each of 12 links: the joint axis and offset in the world (18), the
+      joint rotation (Rodrigues 18, R_p Rot 27), the velocity and
+      acceleration recursion (~45), the CoM acceleration (~27), R I R^T
+      on w and dw (54), the link wrench (~21):                     ~228
+    - each of 4 feet: point, velocity, the wrench of its force:     ~27
+    - each of 12 joint torques: the wrench sums and a . (M - p x F): ~18
+    - trunk Newton-Euler and the Euler-chart moment:               ~141
+    The 15 sin/cos pairs count one operation each.
+    """
+    macs = 60 + 12 * 228 + 4 * 27 + 12 * 18 + 141
+    return (2.0 * macs + 15) * M
+
+
 def node_solve_flops(M: int) -> float:
     """The node solve's terms of algo_flops_riccati (Cholesky, the two
     triangular solves, the Gram, the vectors), x2 for FLOPs, over M nodes."""

@@ -29,7 +29,7 @@ import torch
 from ..ocp.problem import NU, NX, Weights, terminal_residual
 from ..robots.spec import RobotSpec
 from . import _build
-from .layout import robot_consts, terminal_consts
+from .layout import cached_robot_consts, terminal_consts
 
 # Horizons up to this many nodes take the fused riccati_rollout, longer
 # ones riccati_sweep_terminal -> forward_rollout. The JAX package's route
@@ -185,7 +185,7 @@ def _terminal_buffers(spec: RobotSpec, w: Weights, base_ref_e, joint_ref, dev):
     zero = torch.zeros(B, 12, dtype=torch.float32, device=dev)
     xref_e = torch.cat([base_ref_e[:, :6], joint_ref, base_ref_e[:, 6:], zero],
                        1).to(torch.float32).contiguous()
-    return xref_e, robot_consts(spec.to(dev)), terminal_consts(w.to(dev))
+    return xref_e, cached_robot_consts(spec, dev), terminal_consts(w.to(dev))
 
 
 def riccati_rollout(spec: RobotSpec, w: Weights, h: float, lm: float,

@@ -77,6 +77,60 @@ def test_dyncore_kernel_matches_plain(card):
     assert float((out_k - out_p).abs().max()) <= 1e-5 * max(1.0, float(out_p.abs().max()))
 
 
+def _dyncore_rows(card, M):
+    """M evaluations of the line-search candidates' layout
+    (linearize.dyncore_inputs) from perturbed copies of the golden."""
+    from iterative_learning_nmpc_tpu_torch.solver.linearize import dyncore_inputs
+
+    solver, X, U, p = card
+    L = -(-M // (solver.N + 1))
+    rows = dyncore_inputs(*F.perturbed_batch(X, U, p, L, seed=4))
+    return solver.spec, *(r[:M].contiguous() for r in rows)
+
+
+def _dyncore_check(spec, X, A, Fe):
+    n0 = dyncore.launches
+    out_k = dyncore(spec, X, A, Fe)
+    assert dyncore.launches == n0 + 1
+    out_p = dyncore_plain(spec, X, A, Fe)
+    assert out_k.shape == out_p.shape == (X.shape[0], 42)
+    assert float((out_k - out_p).abs().max()) <= 1e-5 * max(1.0, float(out_p.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 7, 52, 13312, 26627])
+def test_dyncore_kernel_shapes(card, M):
+    """Within 1e-5 of the output scale at the replan's M = 52, datagen's
+    13,312 and ragged edges: a block takes 64 evaluations, a warp 8, so M =
+    1, 7 and 26,627 leave part of a warp and of a block empty."""
+    _dyncore_check(*_dyncore_rows(card, M))
+
+
+@pytest.mark.cuda
+def test_dyncore_kernel_takes_unaligned_views(card):
+    """Rows whose first float is not 16-byte aligned (contiguous views at 4,
+    8 and 12 bytes into their storage) take the kernel's 4-byte staging."""
+    spec, *rows = _dyncore_rows(card, 300)
+    views = []
+    for r, off in zip(rows, (1, 2, 3)):
+        flat = torch.empty(r.numel() + off, dtype=r.dtype, device=r.device)
+        v = flat[off:].view(r.shape)
+        v.copy_(r)
+        assert v.is_contiguous() and v.data_ptr() % 16 == 4 * off
+        views.append(v)
+    _dyncore_check(spec, *views)
+
+
+@pytest.mark.cuda
+def test_dyncore_kernel_attributes(card):
+    """No local memory (every per-thread index static), and at least two
+    256-thread blocks resident an SM."""
+    from iterative_learning_nmpc_tpu_torch.ops.dyncore import kernel_attributes
+
+    regs, local, blocks = kernel_attributes()["dyncore_kernel"]
+    assert local == 0 and blocks >= 2, (regs, local, blocks)
+
+
 @pytest.fixture(scope="module")
 def lingram_cases(card):
     """(solver, X, U, p) cases of the lingram kernel: the golden trajectory
