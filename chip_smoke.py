@@ -44,8 +44,12 @@ device plant). Phases, one line each:
      256 envs from the standing pose (joint noise, env 0 clean), 0.3 m/s,
      1000 steps, counters set to 0 before it: at most 8 falls (the JAX
      reference's own spread), forward progress,
-     policy_pd launched once per step, env 0 against the JAX golden
-     (tests/data/go2_trot_policy_rollout_golden.npz),
+     policy_pd launched once per step and policy_pd_dense never, env 0
+     against the JAX golden (tests/data/go2_trot_policy_rollout_golden.npz);
+     then 200 steps of a seeded 5-layer policy (4 hidden layers of 256, the
+     JAX network's class default; its output bias the standing joint
+     angles), which kernel 8 does not take: finite states, policy_pd_dense
+     once per step and policy_pd never,
  12. on-device expert datagen: 256 envs x 20 replanning intervals (0.8 s),
      counters set to 0 before it: the dataset gates of
      tests/test_ondevice.py, the batch solver's kernels launched,
@@ -54,7 +58,11 @@ device plant). Phases, one line each:
      4096, both timed once each way: eager calls between CUDA events (as
      every kernel) and device time (CUDA-graph replay); the kernel's
      registers, local bytes, shared memory and resident clusters
-     (cudaFuncGetAttributes) (it runs after 12, whose rows it takes),
+     (cudaFuncGetAttributes) (it runs after 12, whose rows it takes); and
+     ServedPolicy's route (learning/network.py) for the shipped policy
+     ("kernel"), a seeded 4 x 256 and a 3 x 1024 one ("dense", the fp32
+     addmm chain, as the JAX package serves any net), each on those
+     observations against the addmm chain in float64,
  13. SafeDAgger mode: 256 envs x 8 intervals (policy for 20 steps, the MPC
      latched >= 60 steps once engaged), then B=2 x 2 intervals against the
      JAX golden (tests/data/go2_trot_safedagger_golden.npz),
@@ -65,14 +73,18 @@ device plant). Phases, one line each:
      the counters set to 0 before it and read after it (the fused kernel
      must not run); lingram against its twin at the chain's first step
      (as in phase 5), timed; both sweep kernels against
-     their twins at its end state; the
+     their twins at its end state; the rollout kernel against its twin
+     there and at B=512 (the 256 problems twice), timed against its bound,
+     with its registers, local bytes (0, or the run fails) and resident
+     blocks an SM; the
      fused kernel against the split chain on the same blocks, bit for bit,
      and both timed at N = 25, 88, 100; one B=2 RTI step against the golden's,
  15. the riccati_mode="pallas" + linearize_mode="jacfwd" route (the jacfwd
      Gram as torch ops, the sweep kernel from P_N, the rollout kernel,
      dyncore): a B=256, N=25 chain of 3 steps from phase 4's perturbation,
      counters as above (lingram and the fused kernel must not run); the
-     sweep kernel against its twin; one RTI step against the N=25 golden,
+     sweep kernel against its twin, and the rollout kernel on its gains,
+     timed; one RTI step against the N=25 golden,
  16. riccati_mode="sequential" and "associative" raise NotImplementedError,
  17. the bf16 policy (make_fused_policy_pd with compute_dtype=bfloat16, on
      the tensor cores) on phase 10's observations at B = 256, 1000 and 4096,
@@ -113,6 +125,9 @@ LOOP_S, V_DES, BUDGET_MS = 2.0, 0.3, 40.0
 ARTIFACT = "policy_go2_trot_ondevice_dagger.pkl"
 B_ENV, NOISE, V_MAX = 256, 0.03, 0.3
 T_POLICY, PROGRESS_GATE = 1000, 0.15      # steps; mean forward metres after 1 s
+# the policy shapes kernel 8 does not take (hidden layers, width), and the
+# steps of the 4 x 256 policy's rollout
+OTHER_NETS, T_OTHER = ((4, 256), (3, 1024)), 200
 # per-env trajectories decorrelate within ~0.3 s (stiff contact, policy
 # feedback), so which envs fall is not reproducible across fp32 libraries:
 # the JAX package on the CPU drops 0, 1, 2, 4, 4 of 256 over noise seeds 0-4
@@ -294,10 +309,11 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
     import numpy as np
     import torch
 
+    from iterative_learning_nmpc_tpu_torch.interop import policy_from_numpy, random_policy_payload
     from iterative_learning_nmpc_tpu_torch.learning.network import ServedPolicy, load_policy
     from iterative_learning_nmpc_tpu_torch.learning.ondevice import make_batched_mpc_rollout
     from iterative_learning_nmpc_tpu_torch.ops.policy_pd import (
-        kernel_attributes, policy_pd, policy_pd_plain)
+        kernel_attributes, policy_pd, policy_pd_dense, policy_pd_plain)
     from iterative_learning_nmpc_tpu_torch.sim import device_sim
     from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms, graph_time_ms
 
@@ -313,6 +329,7 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
     def zero_counters():
         for k in kernels:
             k.launches = 0
+        policy_pd_dense.calls = 0
         torch.cuda.synchronize()
 
     # ---- 11. batched policy rollout ----
@@ -324,7 +341,7 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
     Q, V, fell = rollout(q0b, np.zeros((B_ENV, 18), np.float32), vd)
     torch.cuda.synchronize()
     wall_pol = time.perf_counter() - t0
-    pol_launches = policy_pd.launches
+    pol_launches, pol_dense = policy_pd.launches, policy_pd_dense.calls
     Q, V, fell = Q.cpu().numpy(), V.cpu().numpy(), fell.cpu().numpy()
     prog = Q[:, -1, 0] - q0b[:, 0]
     T_g = gold_r["Q"].shape[1]
@@ -343,12 +360,32 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
              "non-finite states")
     if not prog.mean() > PROGRESS_GATE:
         fail(f"policy rollout: mean progress {prog.mean():.4f} m <= {PROGRESS_GATE}")
-    if pol_launches != T_POLICY:
-        fail(f"policy rollout launched policy_pd {pol_launches} times, not {T_POLICY}")
+    if pol_launches != T_POLICY or pol_dense != 0:
+        fail(f"policy rollout launched policy_pd {pol_launches} times, not {T_POLICY}, or "
+             f"took the dense route ({pol_dense} calls)")
     # tests/test_torch_policy.py's bounds: foot impacts amplify the
     # plant's ~1e-5 per-step fp32 differences through the policy
     if not (e_q <= 5e-3 and e_vb <= 0.1 and e_v10 <= 2e-3):
         fail("policy rollout env 0 disagrees with the JAX golden")
+    # a 5-layer policy, which kernel 8 does not take, served by the dense route
+    n_hidden, width = OTHER_NETS[0]
+    other = policy_from_numpy(random_policy_payload(n_hidden, width, SEED, q_stand=q0[6:]),
+                              device=dev)
+    rollout5 = device_sim.make_batched_policy_rollout(spec_d, other, T_OTHER, device=dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    Q5, V5, fell5 = rollout5(q0b, np.zeros((B_ENV, 18), np.float32), vd)
+    torch.cuda.synchronize()
+    wall5 = time.perf_counter() - t0
+    n5 = (policy_pd.launches, policy_pd_dense.calls)
+    finite5 = bool(torch.isfinite(Q5).all() and torch.isfinite(V5).all())
+    print(f"[policy rollout, {n_hidden} x {width}] B={B_ENV} T={T_OTHER} (seeded weights holding "
+          f"the stance): finite {finite5}, fell {int(fell5.sum())} (informational), "
+          f"policy_pd launches {n5[0]}, policy_pd_dense calls {n5[1]}, "
+          f"{wall5 / T_OTHER * 1e3:.3f} ms per control step ({card})", flush=True)
+    if not finite5 or n5 != (0, T_OTHER):
+        fail(f"the {n_hidden} x {width} policy rollout went non-finite or did not take the "
+             f"dense route once a step: {n5}")
 
     # ---- 12. on-device expert datagen ----
     x0b, vd = datagen_batch(gold_r["q0"][:1], B_ENV, rng)
@@ -410,6 +447,35 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
               flush=True)
     attrs = kernel_attributes(dims, dev)
     print("[policy_pd] " + ", ".join(f"{k} {v}" for k, v in attrs.items()), flush=True)
+    # ServedPolicy's route for every policy shape, on the datagen's last
+    # rows, against the addmm chain in float64
+    last = torch.arange(B_ENV, device=dev) * T_dg + T_dg - 1
+    s44, qj, vj = flat(rows.state44)[last], qj_all[last], vj_all[last]
+    goal = torch.as_tensor(vd, device=dev)
+    nets = [("shipped", served, "kernel")] + [
+        (f"{nh} x {wd}", ServedPolicy(*policy_from_numpy(random_policy_payload(nh, wd, SEED),
+                                                         device=dev), device=dev), "dense")
+        for nh, wd in OTHER_NETS]
+    for name, sp, want in nets:
+        n0 = (policy_pd.launches, policy_pd_dense.calls)
+        ak, tk = sp(s44, goal, qj, vj, POLICY_KP, POLICY_KD)
+        torch.cuda.synchronize()
+        n1 = (policy_pd.launches - n0[0], policy_pd_dense.calls - n0[1])
+        ap, tp = policy_pd_plain([(W.double(), b.double()) for W, b in sp.layers], POLICY_KP,
+                                 POLICY_KD, sp.normalize(s44, goal).double(), qj.double(),
+                                 vj.double())
+        ak, tk = ak.double(), tk.double()
+        err = max(float((ak - ap).abs().max()), float((tk - tp).abs().max()))
+        ok = bool(((ak - ap).abs() <= 2e-5 + 2e-4 * ap.abs()).all()
+                  and ((tk - tp).abs() <= 1e-3 + 2e-4 * tp.abs()).all())
+        dims_n = [int(sp.layers[0][0].shape[0])] + [int(W.shape[1]) for W, _ in sp.layers]
+        print(f"[policy routes] {name} {dims_n}: route {sp.route} (kernel 8 launches {n1[0]}, "
+              f"dense calls {n1[1]}), B={B_ENV} max_abs_err to the float64 chain {err:.3e} "
+              f"({'within' if ok else 'OUTSIDE'} |d act| <= 2e-5 + 2e-4 |act|, |d tau| <= "
+              f"1e-3 + 2e-4 |tau|; {card})", flush=True)
+        if sp.route != want or n1 != ((1, 0) if want == "kernel" else (0, 1)) or not ok:
+            fail(f"ServedPolicy {name}: route {sp.route} (want {want}), calls {n1}, within the "
+                 f"bound {ok}")
     err, ok, ms, chain_ms, _, _, args, out_k = pp_results[B_ENV]
     launches["policy_pd"] = pol_launches
     times = {key: {nb: r[i] for nb, r in pp_results.items()} for i, key in
@@ -493,6 +559,34 @@ def step_gate(gains_k, gains_p, gains64, h, defects, dx0):
                      f"{scaled:.2e} of scale")
 
 
+def rollout_case(a5, card):
+    """Kernel 5 (forward_rollout) on a5 = (h, gains, defects, dx0) against
+    its twin: rel |d(dU, dX)| / (1 + |plain|) within REL_GATE, or no
+    further from the float64 rollout than twice the twin, plus REL_GATE /
+    10; timed (CUDA events) beside the twin, with its bound. Returns (the
+    numbers, the kernel's (dX, dU))."""
+    from iterative_learning_nmpc_tpu_torch.ops.riccati import forward_rollout, forward_rollout_plain
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
+
+    out_k, out_p = forward_rollout(*a5), forward_rollout_plain(*a5)
+    out64 = forward_rollout_plain(a5[0], *(x.double() for x in a5[1:]))
+    r, r_k, r_p = (max(rel(a, b) for a, b in zip(x, y))
+                   for x, y in ((out_k, out_p), (out_k, out64), (out_p, out64)))
+    ms = cuda_time_ms(lambda: forward_rollout(*a5), 50)
+    plain_ms = cuda_time_ms(lambda: forward_rollout_plain(*a5), 3)
+    b_ms, b_by, flops, nbytes = bound(forward_rollout_plain, a5, out_k)
+    B, N = a5[1].shape[:2]
+    c = dict(max_abs_err=max(float((a - b).abs().max()) for a, b in zip(out_k, out_p)),
+             rel=r, rel_f64=r_k, rel_f64_plain=r_p,
+             ok=r <= REL_GATE or r_k <= 2.0 * r_p + 0.1 * REL_GATE, ms=ms, plain_ms=plain_ms,
+             bound_ms=b_ms, bound_by=b_by)
+    print(f"[forward_rollout] B={B} N={N}: {ms:.4f} ms ({ms / b_ms:.2f}x its bound {b_ms:.6f} ms "
+          f"by {b_by}: {flops:.4e} flop, {nbytes} B) vs plain {plain_ms:.4f} ms; rel to the "
+          f"twin {r:.2e}, to the float64 rollout {r_k:.2e} (twin {r_p:.2e}) "
+          f"{'ok' if c['ok'] else 'OUTSIDE'} ({card})", flush=True)
+    return c, out_k
+
+
 def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launches,
                          record) -> dict:
     """Phases 14-16 on ``dev``: the long-horizon split route (kernels 4 and
@@ -512,6 +606,8 @@ def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launc
         forward_rollout, forward_rollout_plain, riccati_rollout, riccati_sweep,
         riccati_sweep_plain, riccati_sweep_terminal, riccati_sweep_terminal_plain,
         terminal_gram)
+    from iterative_learning_nmpc_tpu_torch.ops.riccati import (
+        kernel_attributes as riccati_attributes)
     from iterative_learning_nmpc_tpu_torch.solver.linearize import gn_blocks_jacfwd
     from iterative_learning_nmpc_tpu_torch.solver.sqp import TrajOptSolver
     from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
@@ -598,21 +694,25 @@ def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launc
            f"B={B_LONG}, N=100: {txt}", cuda_time_ms(lambda: riccati_sweep_terminal(*a4), 20),
            cuda_time_ms(lambda: riccati_sweep_terminal_plain(*a4), 3),
            riccati_sweep_terminal_plain, a4, g_k)
+    # kernel 5 at the chain's end state, and at B=512 (the 256 problems twice)
     a5 = (h, g_k, d, dx0)
-    out_k, out_p = forward_rollout(*a5), forward_rollout_plain(*a5)
-    out64 = forward_rollout_plain(h, *(x.double() for x in a5[1:]))
-    r5, r5_k, r5_p = (max(rel(a, b) for a, b in zip(x, y))
-                      for x, y in ((out_k, out_p), (out_k, out64), (out_p, out64)))
+    c5, out5 = rollout_case(a5, card)
+    k5_shapes = {f"B={B_LONG} N=100": c5, f"B={2 * B_LONG} N=100": rollout_case(
+        (h, *(torch.cat([x, x]) for x in (g_k, d, dx0))), card)[0]}
+    ric_attrs = riccati_attributes()
+    regs5, local5, blocks5 = ric_attrs["forward_rollout"]
+    print(f"[forward_rollout] {regs5} registers, {local5} B local a thread, {blocks5} blocks "
+          f"(one warp each) an SM ({card})", flush=True)
+    if local5 > 0:
+        fail(f"forward_rollout uses {local5} B of local memory a thread")
     record("forward_rollout", "iterative_learning_nmpc_tpu_torch/csrc/riccati.cu",
-           "iterative_learning_nmpc_tpu/ops/riccati_kernel.py:650",
-           max(float((a - b).abs().max()) for a, b in zip(out_k, out_p)),
-           r5 <= REL_GATE or r5_k <= 2.0 * r5_p + 0.1 * REL_GATE,
-           f"B={B_LONG}, N=100: rel |d(dU, dX)| / (1 + |plain|) {r5:.2e} <= {REL_GATE}, or "
-           f"to the float64 rollout {r5_k:.2e} <= 2 x the twin's {r5_p:.2e} + "
-           f"{0.1 * REL_GATE:.0e}",
-           cuda_time_ms(lambda: forward_rollout(*a5), 50),
-           cuda_time_ms(lambda: forward_rollout_plain(*a5), 3),
-           forward_rollout_plain, a5, out_k)
+           "iterative_learning_nmpc_tpu/ops/riccati_kernel.py:650", c5["max_abs_err"],
+           all(c["ok"] for c in k5_shapes.values()),
+           f"rel |d(dU, dX)| / (1 + |plain|) <= {REL_GATE}, or to the float64 rollout <= 2 x "
+           f"the twin's + {0.1 * REL_GATE:.0e}, at " + ", ".join(k5_shapes),
+           c5["ms"], c5["plain_ms"], forward_rollout_plain, a5, out5,
+           extra=dict(by_shape=k5_shapes, kernel_attributes={"forward_rollout": ric_attrs[
+               "forward_rollout"]}))
 
     # the fused kernel against the split chain on the same blocks; both
     # timed on the first n nodes (terminal state X[:, n]) at each n
@@ -672,6 +772,10 @@ def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launc
     g_k, g_p = riccati_sweep(*a6), riccati_sweep_plain(*a6)
     g64 = riccati_sweep_plain(h, head[3], *(x.double() for x in a6[2:]))
     err, ok, txt = step_gate(g_k, g_p, g64, h, d, dx0)
+    # kernel 5 at the jacfwd route's shape, on its gains; in kernel 5's line
+    k5_shapes[f"B={B_JACFWD} N={sol_j.N}"] = rollout_case((h, g_k, d, dx0), card)[0]
+    if not k5_shapes[f"B={B_JACFWD} N={sol_j.N}"]["ok"]:
+        fail(f"forward_rollout disagrees with its plain twin at B={B_JACFWD}, N={sol_j.N}")
     record("riccati_sweep", "iterative_learning_nmpc_tpu_torch/csrc/riccati.cu",
            "iterative_learning_nmpc_tpu/ops/riccati_kernel.py:390", err, ok,
            f"B={B_JACFWD}, N={sol_j.N}: {txt}", cuda_time_ms(lambda: riccati_sweep(*a6), 20),

@@ -28,8 +28,10 @@
 // blocks prefetched by cp.async into a double buffer; 49,280 bytes of
 // dynamic shared memory, four blocks an SM). The fused kernel writes the
 // gains to a scratch tensor and rolls out over them after the sweep's last
-// __syncthreads; the rollout kernel runs the same stage with one warp per
-// problem (36 lanes of state need no more), four problems to a block.
+// __syncthreads, by its first warp, the rollout's ring laid over the
+// sweep's shared memory; the rollout kernel runs the same stage, one warp
+// (one problem) a block, so B=256 fills the card's 132 SMs. Bound of the
+// rollout: bytes (riccati.cuh, ric_rollout).
 #include <stdint.h>
 
 #include "riccati.cuh"
@@ -42,6 +44,16 @@ __device__ __forceinline__ RicProblem ric_problem(const float* Q, const float* R
   const size_t bn = (size_t)b * N;
   return RicProblem{Q + bn * NX * NX, R + bn * NU * NU, M + bn * NX * NU, qx + bn * NX,
                     ru + bn * NU,     d + bn * NX,      gains + bn * NU * NW};
+}
+
+// Kernel 3's rollout as a call, not inlined: inlined, its code changed the
+// register allocation and scheduling of the sweep before it, whose nodes
+// then ran 5-17 % slower than kernel 4's (traced: 15,211 against 12,946
+// cycles a node at B=256, N=100; scripts/time_riccati_torch.py --trace).
+__device__ __noinline__ void ric_rollout_call(const float* G, const float* d, const float* gend,
+                                             const float* dx0, float* dX, float* dU,
+                                             RollSmem& s, int N, float h, int lane) {
+  ric_rollout(G, d, gend, dx0, dX, dU, s, N, h, lane);
 }
 
 __global__ void __launch_bounds__(RIC_THREADS, 4)
@@ -58,12 +70,10 @@ riccati_rollout_kernel(const float* __restrict__ Qg, const float* __restrict__ R
   __shared__ float Cs[N_CONSTS];
   __shared__ float Jz[4][18];
   __shared__ float pz[4];
-  __shared__ float dx[NX];
-  __shared__ float dxn[NX];
-  __shared__ float du[NU];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+  RIC_SPAN(0);
   const RicProblem g = ric_problem(Qg, Rg, Mg, qxg, rug, dg, gains, b, N);
   if (N > 0) ric_prefetch(g, N - 1, s, tid);
   for (int i = tid; i < N_CONSTS; i += RIC_THREADS) Cs[i] = consts[i];
@@ -71,9 +81,20 @@ riccati_rollout_kernel(const float* __restrict__ Qg, const float* __restrict__ R
   ric_terminal_gram(Cs, xNg + (size_t)b * NX, xrefg + (size_t)b * NX, peakg + b * 4, shg[b],
                     tw, reg, Jz, pz, s, tid, RIC_THREADS);
   ric_sweep(g, N, h, lm, s, tid);
-  ric_rollout(g.G, g.d, dx0g + (size_t)b * NX, dXg + (size_t)b * (N + 1) * NX,
-              dUg + (size_t)b * N * NU, dx, dxn, du, N, h, tid, RIC_THREADS, BlockSync());
+  // the rollout, by warp 0, over the gains this block just wrote (plain
+  // stores, read back by bulk copies: the proxy fence before the barrier
+  // orders them), its ring over the sweep's shared memory, free after the
+  // sweep's last __syncthreads
+  ric_fence_proxy_async();
+  __syncthreads();
+  if (tid < 32) {
+    ric_rollout_call(g.G, g.d, gains + (size_t)gridDim.x * N * NU * NW, dx0g + (size_t)b * NX,
+                     dXg + (size_t)b * (N + 1) * NX, dUg + (size_t)b * N * NU,
+                     *reinterpret_cast<RollSmem*>(ric_smem), N, h, tid);
+    RIC_SPAN(3);
+  }
 }
+static_assert(sizeof(RollSmem) <= sizeof(RicSmem), "the rollout's ring fits the sweep's memory");
 
 __global__ void __launch_bounds__(RIC_THREADS, 4)
 riccati_sweep_terminal_kernel(const float* __restrict__ Qg, const float* __restrict__ Rg,
@@ -90,6 +111,7 @@ riccati_sweep_terminal_kernel(const float* __restrict__ Qg, const float* __restr
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+  RIC_SPAN(0);
   const RicProblem g = ric_problem(Qg, Rg, Mg, qxg, rug, dg, gains, b, N);
   if (N > 0) ric_prefetch(g, N - 1, s, tid);
   for (int i = tid; i < N_CONSTS; i += RIC_THREADS) Cs[i] = consts[i];
@@ -117,22 +139,16 @@ riccati_sweep_kernel(const float* __restrict__ Qg, const float* __restrict__ Rg,
   ric_sweep(g, N, h, lm, s, tid);   // its first __syncthreads publishes P_N, p_N
 }
 
-#define ROLL_WARPS 4
-
-__global__ void __launch_bounds__(32 * ROLL_WARPS)
+// one problem a block of one warp
+__global__ void __launch_bounds__(32)
 forward_rollout_kernel(const float* __restrict__ gains, const float* __restrict__ dg,
                        const float* __restrict__ dx0g, float* __restrict__ dXg,
-                       float* __restrict__ dUg, int B, int N, float h) {
-  __shared__ float dx[ROLL_WARPS][NX];
-  __shared__ float dxn[ROLL_WARPS][NX];
-  __shared__ float du[ROLL_WARPS][NU];
-
-  const int w = threadIdx.x / 32;
-  const int b = blockIdx.x * ROLL_WARPS + w;
-  if (b >= B) return;     // whole warps only: the stage synchronizes per warp
-  ric_rollout(gains + (size_t)b * N * NU * NW, dg + (size_t)b * N * NX, dx0g + (size_t)b * NX,
-              dXg + (size_t)b * (N + 1) * NX, dUg + (size_t)b * N * NU, dx[w], dxn[w], du[w],
-              N, h, threadIdx.x % 32, 32, WarpSync());
+                       float* __restrict__ dUg, int N, float h) {
+  __shared__ RollSmem s;
+  const int b = blockIdx.x;
+  ric_rollout(gains + (size_t)b * N * NU * NW, dg + (size_t)b * N * NX,
+              gains + (size_t)gridDim.x * N * NU * NW, dx0g + (size_t)b * NX,
+              dXg + (size_t)b * (N + 1) * NX, dUg + (size_t)b * N * NU, s, N, h, threadIdx.x);
 }
 
 // The sweeps' dynamic shared memory (over the 48 KB default), allowed once
@@ -201,12 +217,12 @@ extern "C" int riccati_sweep_launch(const float* Q, const float* R, const float*
   return (int)cudaGetLastError();
 }
 
+// The gains and defects move by bulk copies of 16-byte aligned spans.
 extern "C" int forward_rollout_launch(const float* gains, const float* d, const float* dx0,
                                       float* dX, float* dU, int B, int N, float h,
                                       void* stream) {
-  const int blocks = (B + ROLL_WARPS - 1) / ROLL_WARPS;
-  forward_rollout_kernel<<<blocks, 32 * ROLL_WARPS, 0, (cudaStream_t)stream>>>(
-      gains, d, dx0, dX, dU, B, N, h);
+  if (((uintptr_t)gains | (uintptr_t)d) & 15) return (int)cudaErrorMisalignedAddress;
+  forward_rollout_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(gains, d, dx0, dX, dU, N, h);
   return (int)cudaGetLastError();
 }
 
@@ -226,7 +242,7 @@ extern "C" int riccati_attributes(int* out) {
     if (err != cudaSuccess) return (int)err;
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fns[k], k < 3 ? RIC_THREADS : 32 * ROLL_WARPS, k < 3 ? sizeof(RicSmem) : 0);
+        &blocks, fns[k], k < 3 ? RIC_THREADS : 32, k < 3 ? sizeof(RicSmem) : 0);
     if (err != cudaSuccess) return (int)err;
     out[3 * k] = a.numRegs;
     out[3 * k + 1] = (int)a.localSizeBytes;
@@ -237,8 +253,8 @@ extern "C" int riccati_attributes(int* out) {
 
 #ifdef RIC_TRACE
 // The trace buffers: n stamps (RIC_STAMPS per (block, node), block-major)
-// and n spans (4 per block: clock64 and %globaltimer at the sweep's start,
-// then at its end).
+// and n spans (8 per block: clock64 and %globaltimer at the kernel's start,
+// the sweep's start and end, and the rollout's end).
 extern "C" int ric_read_stamps(long long* out, int n) {
   return (int)cudaMemcpyFromSymbol(out, ric_stamps, (size_t)n * 8);
 }

@@ -7,7 +7,8 @@
 //   ric_sweep          the backward sweep over a problem's N nodes: the
 //                      node stage below, pipelined over the nodes, gains
 //                      [K | kff] to global memory,
-//   ric_rollout        the alpha = 1 affine rollout over [K | kff].
+//   ric_rollout        the alpha = 1 affine rollout over [K | kff], by one
+//                      warp, the gains streamed ahead through shared memory.
 //
 // Math: iterative_learning_nmpc_tpu/solver/sqp.py _riccati_solve_structured
 // + _forward_delta_structured with the constant double-integrator
@@ -50,6 +51,8 @@
 // static) and the per-element code has no branch: fully unrolled code
 // (10-13 k instructions) ran out of the instruction cache every node.
 #pragma once
+#include <stdint.h>
+
 #include "legdyn.cuh"
 
 #define NX 36
@@ -93,23 +96,17 @@ struct RicSmem {
   float dg[2][32];                   // the factor warp's next diagonal, by pivot parity
 };
 
-struct BlockSync {
-  __device__ void operator()() const { __syncthreads(); }
-};
-struct WarpSync {
-  __device__ void operator()() const { __syncwarp(); }
-};
-
 // Compiled with -DRIC_TRACE (scripts/time_riccati_torch.py --trace), the
 // sweep's threads 0, 32 and 96 (one of each role) write clock64() at their
-// node's start and the ends of their phases, per (block, node), and each
-// block's clock64() and %globaltimer at the sweep's ends; the shipped build
-// has no stamps.
+// node's start and the ends of their phases, per (block, node), and thread
+// 0 each block's clock64() and %globaltimer at four spans: the kernel's
+// start (span 0, kernels 3 and 4), the sweep's start and end (1, 2) and the
+// rollout's end (3, kernel 3); the shipped build has no stamps.
 #ifdef RIC_TRACE
 #define RIC_STAMPS 15
 #define RIC_STAMP_CAP (1 << 19)
 __device__ long long ric_stamps[RIC_STAMP_CAP];
-__device__ long long ric_spans[4096 * 4];
+__device__ long long ric_spans[4096 * 8];
 // taken by whole warps (the __syncwarp keeps the clock read in its place)
 #define RIC_STAMP(cond, n, i)                                                           \
   do {                                                                                  \
@@ -123,8 +120,8 @@ __device__ long long ric_spans[4096 * 4];
     if (threadIdx.x == 0 && blockIdx.x < 4096) {                                        \
       unsigned long long g_;                                                            \
       asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g_));                           \
-      ric_spans[blockIdx.x * 4 + 2 * (i)] = clock64();                                  \
-      ric_spans[blockIdx.x * 4 + 2 * (i) + 1] = (long long)g_;                          \
+      ric_spans[blockIdx.x * 8 + 2 * (i)] = clock64();                                  \
+      ric_spans[blockIdx.x * 8 + 2 * (i) + 1] = (long long)g_;                          \
     }                                                                                   \
   } while (0)
 #else
@@ -451,7 +448,7 @@ __device__ inline void ric_sweep(const RicProblem& g, int N, float h, float lm, 
   float v[NU];
   ric_cp_wait();
   __syncthreads();
-  RIC_SPAN(0);
+  RIC_SPAN(1);
   for (int n = N - 1; n >= 0; --n) {
     const float* in = s.in[n & 1];
     RIC_STAMP(tid == 0 || tid == 32 || tid == 96, n, tid == 0 ? 0 : tid == 32 ? 5 : 10);
@@ -501,37 +498,167 @@ __device__ inline void ric_sweep(const RicProblem& g, int N, float h, float lm, 
   }
   if (N > 0 && warp >= 1 && warp < 3 && c < NW) ric_backward(v, c, s.Lb[0], s.rs[0], g.G);
   __syncthreads();
-  RIC_SPAN(1);
+  RIC_SPAN(2);
 }
 
-// alpha = 1 affine rollout of one problem over its gains G (N x 30 x 37),
-// defects d (N x 36) and dx0 (36) -> dX ((N+1) x 36), dU (N x 30). Threads
-// tid < nt of one group (a block or a warp, synchronized by `sync`) share
-// the scratch rows dx, dxn (36) and du (30).
-template <class Sync>
-__device__ inline void ric_rollout(const float* G, const float* d, const float* dx0, float* dX,
-                                   float* dU, float* dx, float* dxn, float* du, int N, float h,
-                                   int tid, int nt, Sync sync) {
-  const float hh = 0.5f * h * h;
-  for (int i = tid; i < NX; i += nt) dx[i] = dx0[i];
-  sync();
-  for (int n = 0; n < N; ++n) {
-    const float* Gn = G + (size_t)n * NU * NW;
-    for (int a = tid; a < NU; a += nt) {
-      float v = Gn[a * NW + NX];
-      for (int c = 0; c < NX; ++c) v += Gn[a * NW + c] * dx[c];
-      du[a] = v;
-      dU[(size_t)n * NU + a] = v;
-    }
-    for (int i = tid; i < NX; i += nt) dX[(size_t)n * NX + i] = dx[i];
-    sync();
-    const float* dn = d + (size_t)n * NX;
-    for (int i = tid; i < NX; i += nt)
-      dxn[i] = i < 18 ? dx[i] + h * dx[18 + i] + hh * du[i] + dn[i]
-                      : dx[i] + h * du[i - 18] + dn[i];
-    sync();
-    for (int i = tid; i < NX; i += nt) dx[i] = dxn[i];
-    sync();
+// ---- the alpha = 1 rollout ----
+//
+// Replaces the TPU kernel's _forward_kernel (ops/riccati_kernel.py:650).
+// Its bound on this card is bytes: 4,440 B of gains [K | kff] and 144 B of
+// defects a node, read once, against ~36 dependent FMAs a node. Only
+// dx -> du -> dx' is serial, and the gains do not depend on it, so one warp
+// a problem streams node n+1 .. n+S-1's gains and defects into a ring of
+// S = ROLL_STAGES stages of shared memory (cp.async.bulk, one mbarrier a
+// stage) while node n runs; the chain itself stays on the chip. S = 8: at
+// B=256, 7 nodes in flight a problem are 8.2 MB across the card, over the
+// ~3.4 MB (3.35 TB/s x ~1 us of latency under load) that keep the memory
+// busy, and 37 KB a problem leave six blocks an SM. S = 2 and 4 were
+// slower at B = 256 and 512 (PERF.md, kernel 5's row).
+#define ROLL_STAGES 8
+static_assert((ROLL_STAGES & (ROLL_STAGES - 1)) == 0 && ROLL_STAGES >= 2,
+              "ROLL_STAGES: a power of 2, at least 2");
+#define ROLL_GWIN 1112                  // floats of a node's gains window (278 x 16 B)
+#define ROLL_STAGE (ROLL_GWIN + NX)     // + the node's defects: 4,592 B a stage
+
+// one warp's rollout workspace (37,088 B at S = 8)
+struct RollSmem {
+  alignas(16) float ring[ROLL_STAGES][ROLL_STAGE];
+  alignas(16) float x[2][NX];           // dx by node parity
+  unsigned long long bar[ROLL_STAGES];  // stage s's fills complete on bar[s]
+};
+
+__device__ __forceinline__ unsigned ric_su32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// orders this thread's earlier generic-proxy accesses (shared and global)
+// before later async-proxy ones (bulk copies)
+__device__ __forceinline__ void ric_fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+__device__ __forceinline__ void ric_mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(ric_su32(bar)) : "memory");
+}
+__device__ __forceinline__ void ric_mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void ric_mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(ric_su32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void ric_mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(ric_su32(bar)), "r"(parity)
+        : "memory");
   }
-  for (int i = tid; i < NX; i += nt) dX[(size_t)N * NX + i] = dx[i];
+}
+// global -> shared, completing on bar (16-byte aligned, bytes a multiple of 16)
+__device__ __forceinline__ void ric_bulk(float* dst, const float* src, unsigned bytes,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(ric_su32(dst)),
+      "l"(src), "r"(bytes), "r"(ric_su32(bar))
+      : "memory");
+}
+
+// Node m's gains and defects into ring stage m mod S (one thread). The
+// gains tensor is 16-byte aligned and a node 4,440 = 8 mod 16 bytes, so a
+// node starts at 0 or 8 mod 16: the window is the node widened to 16-byte
+// bounds, 278 chunks from the chunk its start lies in (the gains then sit
+// at float 0 or 2 of the stage). For a node that starts aligned the window
+// ends 8 bytes past it, in the next node; for the tensor's last node that
+// would read past the tensor, so its window is 277 chunks and its last 8
+// bytes come by a plain load (L2: kernel 3 wrote them in this launch).
+__device__ __forceinline__ void ric_roll_fetch(RollSmem& s, const float* G, const float* d,
+                                               const float* gend, int m) {
+  const int st = m & (ROLL_STAGES - 1);
+  const float* win = reinterpret_cast<const float*>(
+      reinterpret_cast<uintptr_t>(G + (size_t)m * NU * NW) & ~(uintptr_t)15);
+  const bool last = win + ROLL_GWIN > gend;
+  const unsigned gbytes = last ? 4 * ROLL_GWIN - 16 : 4 * ROLL_GWIN;
+  ric_mbar_expect_tx(&s.bar[st], gbytes + 4 * NX);
+  ric_bulk(s.ring[st], win, gbytes, &s.bar[st]);
+  ric_bulk(s.ring[st] + ROLL_GWIN, d + (size_t)m * NX, 4 * NX, &s.bar[st]);
+  if (last)
+    *reinterpret_cast<float2*>(&s.ring[st][ROLL_GWIN - 4]) =
+        __ldcg(reinterpret_cast<const float2*>(win + ROLL_GWIN - 4));
+}
+
+// alpha = 1 affine rollout of one problem by one warp (lane 0 .. 31) over
+// its gains G (N x 30 x 37), defects d (N x 36) and dx0 (36) -> dX
+// ((N+1) x 36), dU (N x 30); gend is the end of the whole gains tensor, G
+// and d 16-byte aligned. Lane a < 30 owns row a of the gains in the ring
+// (stride 37, odd: conflict-free) and forms du[a] = kff[a], then the FMAs
+// over c = 0 .. 35 in ascending order, dx[c] a broadcast; lane i owns
+// dx'[i] (lane i < 4 also dx'[32 + i]), its du[i mod 18] by a shuffle.
+// dx' goes to shared memory by node parity: one __syncwarp a node. Lane 0
+// keeps S - 1 nodes in flight.
+__device__ inline void ric_rollout(const float* G, const float* d, const float* gend,
+                                   const float* dx0, float* dX, float* dU, RollSmem& s, int N,
+                                   float h, int lane) {
+  const float hh = 0.5f * h * h;
+  const int a = lane < NU ? lane : NU - 1;      // lanes 30, 31 repeat row 29, unstored
+  const int i1 = 32 + (lane & 3);               // the second entry of lanes 0 .. 3
+  const int j0 = lane < 18 ? lane : lane - 18;  // du's index in dx'[lane]
+  const int v0 = lane < 18 ? lane + 18 : lane;  // dx'[lane < 18] reads dx[lane + 18]
+  const float c0 = lane < 18 ? hh : h;
+  if (lane == 0) {
+    for (int k = 0; k < ROLL_STAGES; ++k) ric_mbar_init(&s.bar[k]);
+    ric_mbar_init_fence();
+    for (int m = 0; m < ROLL_STAGES - 1 && m < N; ++m) ric_roll_fetch(s, G, d, gend, m);
+  }
+  const float y0 = dx0[lane];
+  s.x[0][lane] = y0;
+  dX[lane] = y0;
+  if (lane < 4) {
+    const float y1 = dx0[i1];
+    s.x[0][i1] = y1;
+    dX[i1] = y1;
+  }
+  __syncwarp();
+  for (int n = 0; n < N; ++n) {
+    const int st = n & (ROLL_STAGES - 1);
+    if (lane == 0 && n + ROLL_STAGES - 1 < N) ric_roll_fetch(s, G, d, gend, n + ROLL_STAGES - 1);
+    const float* xs = s.x[n & 1];
+    float x[NX];
+#pragma unroll
+    for (int q = 0; q < NX / 4; ++q) {
+      const float4 f = *reinterpret_cast<const float4*>(&xs[4 * q]);
+      x[4 * q] = f.x;
+      x[4 * q + 1] = f.y;
+      x[4 * q + 2] = f.z;
+      x[4 * q + 3] = f.w;
+    }
+    const float xv = xs[v0], t1 = xs[i1];
+    const float t0 = lane < 18 ? fmaf(h, xv, xs[lane]) : xs[lane];
+    ric_mbar_wait(&s.bar[st], (unsigned)(n / ROLL_STAGES) & 1u);
+    const float* ring = s.ring[st];
+    const float* g = ring + ((reinterpret_cast<uintptr_t>(G + (size_t)n * NU * NW) >> 2) & 3) +
+                     a * NW;
+    float du = g[NX];
+#pragma unroll
+    for (int c = 0; c < NX; ++c) du = fmaf(g[c], x[c], du);
+    const float d0 = ring[ROLL_GWIN + lane], d1 = ring[ROLL_GWIN + i1];
+    if (lane < NU) dU[(size_t)n * NU + lane] = du;
+    const float u0 = __shfl_sync(0xffffffffu, du, j0);
+    const float u1 = __shfl_sync(0xffffffffu, du, i1 - 18);
+    float* xn = s.x[(n + 1) & 1];
+    float* dXn = dX + (size_t)(n + 1) * NX;
+    const float y0n = fmaf(c0, u0, t0) + d0;
+    xn[lane] = y0n;
+    dXn[lane] = y0n;
+    if (lane < 4) {
+      const float y1n = fmaf(h, u1, t1) + d1;
+      xn[i1] = y1n;
+      dXn[i1] = y1n;
+    }
+    __syncwarp();
+  }
 }

@@ -105,6 +105,34 @@ def policy_from_numpy(payload, device=None):
     return net.eval().to(dev), norm
 
 
+def random_policy_payload(n_hidden: int, width: int, seed: int, q_stand=None) -> dict:
+    """A seeded policy payload in the JAX package's layout (Flax variables
+    with batch norm and random running statistics, no input statistics,
+    net_config) of 47 -> width x n_hidden -> 12, for tests and the smoke
+    run. With ``q_stand`` (12 joint angles), the last layer's weights are
+    scaled by 1e-2 and its bias is q_stand, so that the policy holds the
+    stance."""
+    rng = np.random.default_rng(seed)
+    dims = (47,) + (width,) * n_hidden + (12,)
+    params, stats = {}, {}
+    for i in range(n_hidden + 1):
+        params[f"Dense_{i}"] = {"kernel": rng.normal(0, dims[i] ** -0.5, dims[i:i + 2]),
+                                "bias": rng.normal(0, 0.1, dims[i + 1])}
+        if i < n_hidden:
+            params[f"BatchNorm_{i}"] = {"scale": rng.uniform(0.5, 1.5, width),
+                                        "bias": rng.normal(0, 0.1, width)}
+            stats[f"BatchNorm_{i}"] = {"mean": rng.normal(0, 0.1, width),
+                                       "var": rng.uniform(0.5, 2.0, width)}
+    if q_stand is not None:
+        last = params[f"Dense_{n_hidden}"]
+        last["kernel"] *= 1e-2
+        last["bias"] = np.asarray(q_stand, np.float64)
+    cfg = dict(input_size=47, output_size=12, num_hidden_layer=n_hidden, hidden_dim=width,
+               batch_norm=True, dropout_rate=0.0)
+    return {"variables": {"params": params, "batch_stats": stats}, "norm_policy_input": None,
+            "net_config": cfg}
+
+
 def controller_state_from_numpy(mpc, X, U, lam_eq, lam_ineq) -> None:
     """Give a ``LocomotionMPC`` the warm start (X_prev, U_prev, lam,
     lami) of its next replan, on its device."""

@@ -11,8 +11,12 @@ net_config}, plain dicts of numpy arrays: they load without JAX.
 Serving (``ServedPolicy``): the state columns 1: and the goal are
 normalised with the payload's statistics (the phase column passes through;
 a standard deviation <= 1e-8 counts as 1), the BatchNorm layers are folded
-into the Dense weights once, on the device, and every call is one
-``ops.policy_pd`` (the fused MLP + PD kernel on a CUDA device).
+into the Dense weights once, on the device, and the route is chosen once,
+by shape: kernel 8 (``ops.policy_pd``, the fused MLP + PD kernel on a CUDA
+device, its plain twin on the CPU) for the widths it takes
+(``ops.policy_pd.kernel_takes``), and the fp32 addmm chain
+(``ops.policy_pd.policy_pd_dense``) for every other net, as the JAX
+package serves any net.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.policy_pd import fold_batchnorm, policy_pd
+from ..ops.policy_pd import fold_batchnorm, kernel_takes, policy_pd, policy_pd_dense
 
 
 class GoalConditionedPolicyNet(nn.Module):
@@ -99,8 +103,11 @@ def load_policy(path: str, v_des=None, device=None):
 
 class ServedPolicy:
     """A policy folded for serving on one device: ``layers`` the
-    BatchNorm-folded (W, b) float32 tensors, and the guarded normalisation
-    statistics."""
+    BatchNorm-folded (W, b) float32 tensors, the guarded normalisation
+    statistics, and ``route``, chosen here once by shape: "kernel" (kernel
+    8; the twin on the CPU) for the widths it takes, "dense" (the fp32
+    addmm chain) for every other net. A route rule, not a fallback: a
+    kernel that fails to build or launch raises."""
 
     def __init__(self, weights, norm=None, device=None):
         """weights: a GoalConditionedPolicyNet or a Flax-layout variables
@@ -119,6 +126,9 @@ class ServedPolicy:
         guard = lambda sd: torch.where(sd > 1e-8, sd, torch.ones_like(sd))
         self.s_mean, self.s_std = s_mean, guard(s_std)
         self.g_mean, self.g_std = g_mean, guard(g_std)
+        dims = [int(self.layers[0][0].shape[0])] + [int(W.shape[1]) for W, _ in self.layers]
+        self.route = "kernel" if kernel_takes(dims) else "dense"
+        self._serve = policy_pd if self.route == "kernel" else policy_pd_dense
 
     def normalize(self, state44: torch.Tensor, goal: torch.Tensor) -> torch.Tensor:
         """(..., 44) observations and (..., 3) goals -> (..., 47) inputs."""
@@ -127,5 +137,6 @@ class ServedPolicy:
         return torch.cat([state44[..., :1], s, g], dim=-1)
 
     def __call__(self, state44, goal, qj, vj, kp: float, kd: float):
-        """(act, tau) (B, 12): the PD targets and kp (act - qj) - kd vj."""
-        return policy_pd(self.layers, kp, kd, self.normalize(state44, goal), qj, vj)
+        """(act, tau) (B, 12): the PD targets and kp (act - qj) - kd vj, by
+        ``route``."""
+        return self._serve(self.layers, kp, kd, self.normalize(state44, goal), qj, vj)

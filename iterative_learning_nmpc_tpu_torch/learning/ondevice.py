@@ -17,7 +17,7 @@ package's while loops does. Per replanning interval (one OCP node):
 
 per control step: MPC torque (feed-forward + joint PD, clipped), the 44-dim
 dataset row recorded before the plant step, in SafeDAgger mode the policy's
-torque (``ops.policy_pd``) and the hysteresis switch, the action encoded as
+torque (``network.ServedPolicy``, by its route) and the hysteresis switch, the action encoded as
 a PD target, the scheduled base push, the plant step on per-environment
 terrain; at the end of each interval the fall test freezes ``valid``.
 """

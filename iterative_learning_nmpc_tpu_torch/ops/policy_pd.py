@@ -8,12 +8,14 @@ Replaces the JAX package's ``ops/policy_kernel.py:make_fused_policy_pd``
 tensors take the twins; CUDA tensors launch the kernels or raise.
 ``layers`` is the list of folded ``(W (d_in, d_out), b (d_out,))`` tensors
 from ``fold_batchnorm``; the kernels take exactly four (three hidden
-layers), as the TPU kernel.
+layers), as the TPU kernel. ``kernel_takes`` states which widths kernel 8
+takes; ``policy_pd_dense`` serves every other shape on the card, as the
+JAX package serves any net outside its Pallas kernel.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +64,50 @@ def policy_pd_plain(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: flo
     return h, kp * (h - qj) - kd * vj
 
 
+def policy_pd_dense(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: float,
+                    kd: float, x: torch.Tensor, qj: torch.Tensor, vj: torch.Tensor):
+    """The policy step for the widths kernel 8 does not take (``kernel_takes``
+    false): one fp32 ``torch.addmm`` a layer with TF32 off (the package's
+    setting; raises if it was turned on), ReLU between them, then the PD
+    torque. The counterpart of the JAX package's own route on its serving
+    paths (``learning/ondevice.py:164-172``, ``sim/jax_sim.py:153,174``: the
+    Flax module under ``vmap``): a plain product that the JAX package
+    computes outside any Pallas kernel. ``ServedPolicy`` chooses it by shape
+    when it is built; ``calls`` counts its calls. Same contract as
+    policy_pd_plain."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("policy_pd_dense: TF32 matmuls are on; the port serves in full "
+                           "fp32 (torch.backends.cuda.matmul.allow_tf32 = False)")
+    policy_pd_dense.calls += 1
+    return policy_pd_plain(layers, kp, kd, x, qj, vj)
+
+
+policy_pd_dense.calls = 0
+
+
+def _refusal(dims: Sequence[int]) -> Optional[str]:
+    """Why kernel 8 does not take a net of widths dims = (n_in, h1, ...,
+    n_out), or None: it takes four layers, every layer's width a multiple of
+    4, hidden widths <= 512 and n_out <= 64."""
+    if len(dims) != 5:
+        return f"the kernel takes 4 layers, got {len(dims) - 1}"
+    if any(d % 4 for d in dims[1:]):
+        return f"layer widths must be multiples of 4, got {list(dims)}"
+    if max(dims[1:4]) > 512 or dims[4] > 64:
+        return f"the kernel takes hidden widths <= 512 and n_out <= 64, got {list(dims)}"
+    return None
+
+
+def kernel_takes(dims: Sequence[int]) -> bool:
+    """Whether kernel 8 serves a net of widths dims = (n_in, h1, ..., n_out):
+    the shapes ``policy_pd`` accepts, stated without a card. The block's
+    shared memory is not part of the rule: a card that cannot hold it makes
+    ``policy_pd`` raise. On an H100 (227 KB a block) it holds every net of
+    47 inputs and 12 outputs that the rule accepts, the nets
+    ``ServedPolicy`` serves."""
+    return _refusal([int(d) for d in dims]) is None
+
+
 # what policy_pd_launch returns when the widths need more shared memory a
 # block than the card allows (csrc/policy_pd.cu PP_ERR_SMEM)
 _ERR_SMEM = -1
@@ -88,10 +134,11 @@ def policy_pd(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: float,
         return policy_pd_plain(layers, kp, kd, x, qj, vj)
     if x.device.type != "cuda":
         raise ValueError(f"policy_pd: unsupported device {x.device}")
-    if len(layers) != 4:
-        raise ValueError(f"policy_pd: the kernel takes 4 layers, got {len(layers)}")
     B, n_in = x.shape
     dims = [n_in] + [int(W.shape[1]) for W, _ in layers]
+    why = _refusal(dims)
+    if why is not None:
+        raise ValueError(f"policy_pd: {why}")
     n_out = dims[-1]
     x, qj, vj = x.contiguous(), qj.contiguous(), vj.contiguous()
     _check("policy_pd", "x", x, (B, n_in))
@@ -100,11 +147,6 @@ def policy_pd(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: float,
     for i, (W, b) in enumerate(layers):
         _check("policy_pd", f"W{i + 1}", W, (dims[i], dims[i + 1]))
         _check("policy_pd", f"b{i + 1}", b, (dims[i + 1],))
-        if dims[i + 1] % 4:
-            raise ValueError(f"policy_pd: layer widths must be multiples of 4, got {dims}")
-    if max(dims[1:4]) > 512 or n_out > 64:
-        raise ValueError(f"policy_pd: the kernel takes hidden widths <= 512 and n_out <= 64, "
-                         f"got {dims}")
     if any(t.device != x.device for t in (qj, vj, *[a for l in layers for a in l])):
         raise ValueError("policy_pd: every tensor must lie on x's device")
     if any(W.data_ptr() % 16 for W, _ in layers):

@@ -292,7 +292,10 @@ riccati_sweep.launches = 0
 
 def forward_rollout(h: float, gains, defects, dx0):
     """gains [K | kff] (B, N, 30, 37) + defects (B, N, 36) + dx0 (B, 36) ->
-    the alpha=1 step dX (B, N+1, 36), dU (B, N, 30)."""
+    the alpha=1 step dX (B, N+1, 36), dU (B, N, 30). On the card one warp
+    a problem, each node's gains and defects streamed ahead by bulk copies
+    of 16-byte aligned spans (the tensors are made contiguous and 16-byte
+    aligned here)."""
     if _takes_twin("forward_rollout", gains):
         return forward_rollout_plain(h, gains, defects, dx0)
     B, N = gains.shape[0], gains.shape[1]
@@ -321,7 +324,8 @@ def kernel_attributes() -> dict:
     """{kernel: (registers, local bytes, resident blocks an SM)} of the four
     compiled kernels at their launch shapes (cudaFuncGetAttributes, local
     bytes being the stack frame and spills;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; forward_rollout's block
+    is one warp, one problem)."""
     out = (ctypes.c_int * 12)()
     _build.check(_build.library().riccati_attributes(out), "riccati_attributes")
     names = ("riccati_rollout", "riccati_sweep_terminal", "riccati_sweep", "forward_rollout")

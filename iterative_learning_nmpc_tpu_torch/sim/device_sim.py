@@ -133,9 +133,10 @@ def make_batched_policy_rollout(spec: RobotSpec, policy, T: int, kp: float = 20.
     ``jax_sim.make_batched_policy_rollout``).
 
     ``policy``: ``load_policy``'s (net, norm) pair. Each step: observation
-    (phase 0) -> normalised input -> ``policy_pd`` (PD targets and the
-    torque kp (target - q_j) - kd v_j in one kernel on a CUDA device) ->
-    plant step. Returns fn(q0 (B, 18), v0 (B, 18), v_des
+    (phase 0) -> normalised input -> ``ServedPolicy`` (PD targets and the
+    torque kp (target - q_j) - kd v_j: in one kernel on a CUDA device for
+    the widths kernel 8 takes, else by the fp32 addmm chain) -> plant
+    step. Returns fn(q0 (B, 18), v0 (B, 18), v_des
     (B, 3)) -> (Q (B, T, 18), V (B, T, 18), fell (B,)): the states after each
     step and whether the base went below 0.15 m or tilted beyond 0.6 rad.
     Runs on ``device``, by default the CUDA card."""

@@ -10,12 +10,20 @@ converged trajectory of tests/data for B problems, interior states moved by
 - kernel 4 ``riccati_sweep_terminal`` at B=256, N=100 (the long-horizon
   chain, phase 14);
 - kernel 6 ``riccati_sweep`` at B=256, N=25 (the jacfwd route, phase 15);
+- kernel 5 ``forward_rollout`` over kernel 4's gains at B = 256 and 512,
+  N=100 (the long-horizon chain) and B=256, N=25 (the jacfwd route's
+  shape), and the split chain (kernel 4 -> 5) beside the fused kernel 3 at
+  B=256, N=100;
 - P2 ``probes.node_solve_block`` at B=1024, N=25 (the reference probe's
   blocks; it runs the same node stage, phase 19).
 Each is checked first (kernels 3, 4 and 6: the step their gains give no
 further from the float64 twin's step than twice the fp32 twin's, plus
-1e-4, with kernel 3's distance to its fp32 twin printed beside it; P2
-within 1e-5 of its twin), then timed with CUDA events. ``--root DIR`` times the package of another checkout (a
+1e-4, with kernel 3's distance to its fp32 twin printed beside it; kernel
+5: rel |d(dU, dX)| / (1 + |twin|) <= 1e-3 or no further from the float64
+rollout than twice the twin, plus 1e-4; the split chain bit for bit the
+fused kernel's step; P2 within 1e-5 of its twin), then timed with CUDA
+events, eager (wrapper calls) and by device time (calls replayed from a
+CUDA graph, ``utils/profiling.graph_time_ms``). ``--root DIR`` times the package of another checkout (a
 parent commit unpacked with ``git archive``, say) on the same card, so one
 call can time two versions in turns. ``--chains`` also runs the warm RTI
 chains (B=512, N=25 for 20 steps; B=256, N=100 for 5 steps;
@@ -25,14 +33,16 @@ chip_smoke.py phase 8's closed loop (LocomotionMPC on the device plant) for
 S seconds and prints the replan latency's median and p95. ``--trace``
 builds the tree's ``csrc/riccati.cu`` alone with ``-DRIC_TRACE``,
 which compiles in clock64() stamps at the ends of the node stage's phases,
-and prints, for kernel 3 at B = 1 and 512 and kernel 4 at B=256, N=100, the
-median cycles of each phase of a node over blocks and nodes, converted to
-us by each block's clock64 / %globaltimer ratio, and the traced kernel's
-time beside the shipped one's. ``--ptxas`` prints the registers, stack and
-spills of csrc/riccati.cu and csrc/probes.cu (``nvcc -Xptxas -v``), the
+and prints, for kernel 3 at B = 1 and 512 (N=25) and 256 (N=100) and
+kernel 4 at B=256, N=100, the median cycles of each phase of a node over
+blocks and nodes, converted to us by each block's clock64 / %globaltimer
+ratio, a block's median terminal Gram, sweep and (kernel 3) rollout time
+by %globaltimer, and the traced kernel's time beside the shipped one's.
+``--ptxas`` prints the registers, stack and spills of csrc/riccati.cu and
+csrc/probes.cu (``nvcc -Xptxas -v``), the
 kernels' SASS instruction counts (``cuobjdump -sass``) and their
-attributes. Prints the card's name and power limit first
-and one JSON line last.
+attributes. Prints the card's name and power limit first and one JSON
+line last.
 
     python3 scripts/time_riccati_torch.py [--root DIR] [--reps 20] [--chains]
                                           [--replan 1.0] [--trace] [--ptxas]
@@ -156,6 +166,32 @@ def cases(root, dev):
                     f"step to the float64 sweep's {r_k:.2e} (twin {r_p:.2e})")
 
         out[label] = (call, check)
+    for B, N in ((256, 100), (512, 100), (256, 25)):
+        args, term, dx0 = sweep_inputs(root, dev, N, B)
+        a5 = (args[2], R.riccati_sweep_terminal(*args, *term), args[10], dx0)
+
+        def check5(a5=a5):
+            k, p = R.forward_rollout(*a5), R.forward_rollout_plain(*a5)
+            k64 = R.forward_rollout_plain(a5[0], *(x.double() for x in a5[1:]))
+            r = max(rel(x, y) for x, y in zip(k, p))
+            r_k, r_p = (max(rel(x.double(), y) for x, y in zip(o, k64)) for o in (k, p))
+            return (r <= 1e-3 or r_k <= 2.0 * r_p + 1e-4,
+                    f"rel to the twin {r:.2e}; to the float64 rollout {r_k:.2e} (twin {r_p:.2e})")
+
+        out[f"kernel 5 forward_rollout B={B} N={N}"] = (lambda a5=a5: R.forward_rollout(*a5),
+                                                         check5)
+    args, term, dx0 = sweep_inputs(root, dev, 100, 256)
+
+    def split(args=args, term=term, dx0=dx0):
+        return R.forward_rollout(args[2], R.riccati_sweep_terminal(*args, *term), args[10], dx0)
+
+    def check_split(args=args, term=term, dx0=dx0):
+        same = all(torch.equal(a, b) for a, b in zip(split(), R.riccati_rollout(*args, dx0, *term)))
+        return same, f"bit-equal to the fused kernel {same}"
+
+    out["split chain kernel 4 -> 5 B=256 N=100"] = (split, check_split)
+    out["fused kernel 3 B=256 N=100"] = (lambda: R.riccati_rollout(*args, dx0, *term),
+                                         lambda: (True, "timed beside the split chain"))
     blocks = probes.reference_node_blocks(1024, 25, 0, dev)
 
     def check_p2(blocks=blocks):
@@ -259,6 +295,7 @@ def trace(root, dev, card, reps) -> dict:
     out = {}
     for label, fn, N, B in (("kernel 3 B=1 N=25", "rollout", 25, 1),
                             ("kernel 3 B=512 N=25", "rollout", 25, 512),
+                            ("kernel 3 B=256 N=100", "rollout", 100, 256),
                             ("kernel 4 B=256 N=100", "terminal", 100, 256)):
         args, term, dx0 = sweep_inputs(root, dev, N, B)
         call = ((lambda: R.riccati_rollout(*args, dx0, *term)) if fn == "rollout"
@@ -273,21 +310,26 @@ def trace(root, dev, card, reps) -> dict:
             _build._Lib.handle = shipped
         n_st = B * N * STAMPS
         st = (ctypes.c_longlong * n_st)()
-        sp = (ctypes.c_longlong * (4 * B))()
+        sp = (ctypes.c_longlong * (8 * B))()
         _build.check(lib.ric_read_stamps(st, n_st), "ric_read_stamps")
-        _build.check(lib.ric_read_spans(sp, 4 * B), "ric_read_spans")
+        _build.check(lib.ric_read_spans(sp, 8 * B), "ric_read_spans")
         s = np.array(st, dtype=np.float64).reshape(B, N, STAMPS)
-        spans = np.array(sp, dtype=np.float64).reshape(B, 2, 2)
-        ghz = float(np.median((spans[:, 1, 0] - spans[:, 0, 0]) / (spans[:, 1, 1] - spans[:, 0, 1])))
+        # (block, span, (clock64, globaltimer ns)): the kernel's start, the
+        # sweep's start and end, the rollout's end (kernel 3)
+        spans = np.array(sp, dtype=np.float64).reshape(B, 4, 2)
+        ghz = float(np.median((spans[:, 2, 0] - spans[:, 1, 0]) / (spans[:, 2, 1] - spans[:, 1, 1])))
         # nodes run n = N-1 .. 0; the node's span ends at the next node's stamp 0
         ph = {k: float(np.median(s[:, 1:, b] - s[:, 1:, a])) for k, (a, b) in PHASES.items()}
         ph["C to the next node"] = float(np.median(s[:, :-1, 0] - s[:, 1:, 4]))
         ph["node"] = float(np.median(s[:, :-1, 0] - s[:, 1:, 0]))
-        sweep_us = float(np.median(spans[:, 1, 1] - spans[:, 0, 1])) / 1e3
+        us = lambda a, b: float(np.median(spans[:, b, 1] - spans[:, a, 1])) / 1e3
+        sweep_us, terminal_us = us(1, 2), us(0, 1)
+        rollout_us = us(2, 3) if fn == "rollout" else 0.0
         out[label] = {"ms": ms, "ms_traced": ms_traced, "ghz": ghz, "sweep_us": sweep_us,
-                      "cycles": ph}
-        print(f"[trace {label}] kernel {ms:.4f} ms, traced {ms_traced:.4f} ms, the sweep "
-              f"{sweep_us:.2f} us of it; a node {ph['node']:.0f} cycles "
+                      "terminal_us": terminal_us, "rollout_us": rollout_us, "cycles": ph}
+        print(f"[trace {label}] kernel {ms:.4f} ms, traced {ms_traced:.4f} ms; a block's "
+              f"median terminal Gram {terminal_us:.2f} us, sweep {sweep_us:.2f} us, rollout "
+              f"{rollout_us:.2f} us (%globaltimer); a node {ph['node']:.0f} cycles "
               f"({ph['node'] / ghz / 1e3:.3f} us at {ghz:.3f} GHz, the blocks' clock64 over "
               f"%globaltimer) ({card})", flush=True)
         print("  median cycles: " + ", ".join(f"{k} {v:.0f}" for k, v in ph.items()), flush=True)
@@ -314,7 +356,7 @@ def main() -> None:
     card = card_name()
     print(card, flush=True)
     from iterative_learning_nmpc_tpu_torch.ops import _build
-    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms, graph_time_ms
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -339,10 +381,11 @@ def main() -> None:
     ok_all = True
     for label, (call, check) in cases(root, dev).items():
         ok, text = check()
-        ms = cuda_time_ms(call, args.reps)
+        ms, dev_ms = cuda_time_ms(call, args.reps), graph_time_ms(call)
         ok_all &= ok
-        result["cases"][label] = {"ms": ms, "ok": ok, "check": text}
-        print(f"[{label}] {ms:.4f} ms; {text} {'ok' if ok else 'OUTSIDE'} ({card})", flush=True)
+        result["cases"][label] = {"ms": ms, "device_ms": dev_ms, "ok": ok, "check": text}
+        print(f"[{label}] {ms:.4f} ms, device {dev_ms:.4f} ms; {text} "
+              f"{'ok' if ok else 'OUTSIDE'} ({card})", flush=True)
     if args.chains:
         from time_lingram_torch import chains
 

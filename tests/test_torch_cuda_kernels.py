@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from iterative_learning_nmpc_tpu_torch import flagship as F
+from iterative_learning_nmpc_tpu_torch.interop import random_policy_payload
 from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore, dyncore_plain
 from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain
 from iterative_learning_nmpc_tpu_torch.ops.lingram import (
@@ -250,18 +251,7 @@ def _shipped_layers():
 def _random_layers(h, seed):
     """A seeded 47 -> h x3 -> 12 policy in the Flax layout (Dense + BatchNorm
     with random running statistics), folded as the shipped one is."""
-    rng = np.random.default_rng(seed)
-    dims = (47, h, h, h, 12)
-    params, stats = {}, {}
-    for i in range(4):
-        params[f"Dense_{i}"] = {"kernel": rng.normal(0, dims[i] ** -0.5, dims[i:i + 2]),
-                                "bias": rng.normal(0, 0.1, dims[i + 1])}
-        if i < 3:
-            params[f"BatchNorm_{i}"] = {"scale": rng.uniform(0.5, 1.5, h),
-                                        "bias": rng.normal(0, 0.1, h)}
-            stats[f"BatchNorm_{i}"] = {"mean": rng.normal(0, 0.1, h),
-                                       "var": rng.uniform(0.5, 2.0, h)}
-    return fold_batchnorm({"params": params, "batch_stats": stats})
+    return fold_batchnorm(random_policy_payload(3, h, seed)["variables"])
 
 
 def _policy_layers(width, dev):
@@ -373,6 +363,52 @@ def test_policy_rollout_defaults_to_the_card(card):
     assert policy_pd.launches == n0 + 3
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_hidden, width", [(4, 256), (3, 1024)])
+def test_served_policy_takes_the_dense_route_for_other_shapes(card, n_hidden, width):
+    """A net kernel 8 does not take (4 hidden layers of 256, the JAX
+    network's class default; 3 of 1024), loaded as a payload and served on
+    the card: route "dense", one policy_pd_dense call and no kernel 8
+    launch a step, and the addmm chain's result in float64 to kernel 8's
+    bounds."""
+    from iterative_learning_nmpc_tpu_torch.interop import policy_from_numpy
+    from iterative_learning_nmpc_tpu_torch.learning.network import ServedPolicy
+    from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd_dense
+
+    dev = torch.device("cuda")
+    payload = random_policy_payload(n_hidden, width, width)
+    served = ServedPolicy(*policy_from_numpy(payload, device=dev), device=dev)
+    assert served.route == "dense"
+    gen = torch.Generator().manual_seed(width)
+    s44, goal, qj, vj = (torch.randn(256, n, generator=gen).to(dev) for n in (44, 3, 12, 12))
+    n_kernel, n_dense = policy_pd.launches, policy_pd_dense.calls
+    act, tau = served(s44, goal, qj, vj, 20.0, 1.5)
+    torch.cuda.synchronize()
+    assert (policy_pd.launches, policy_pd_dense.calls) == (n_kernel, n_dense + 1)
+    ap, tp = policy_pd_plain([(W.double(), b.double()) for W, b in served.layers], 20.0, 1.5,
+                             served.normalize(s44, goal).double(), qj.double(), vj.double())
+    torch.testing.assert_close(act.double(), ap, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(tau.double(), tp, rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_served_policy_keeps_the_kernel_for_the_shipped_payload(card):
+    """The shipped 47 -> 512x3 -> 12 payload: route "kernel", one kernel 8
+    launch a step and no dense call."""
+    from iterative_learning_nmpc_tpu_torch.learning.network import ServedPolicy, load_policy
+    from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd_dense
+
+    dev = torch.device("cuda")
+    served = ServedPolicy(*load_policy(ARTIFACT, device=dev), device=dev)
+    assert served.route == "kernel"
+    gen = torch.Generator().manual_seed(0)
+    s44, goal, qj, vj = (torch.randn(256, n, generator=gen).to(dev) for n in (44, 3, 12, 12))
+    n_kernel, n_dense = policy_pd.launches, policy_pd_dense.calls
+    served(s44, goal, qj, vj, 20.0, 1.5)
+    torch.cuda.synchronize()
+    assert (policy_pd.launches, policy_pd_dense.calls) == (n_kernel + 1, n_dense)
+
+
 @pytest.fixture(scope="module")
 def horizons(card):
     """N -> (solver, X, U, params) at the golden converged points of N=25 and
@@ -456,6 +492,83 @@ def test_riccati_sweep_kernels_match_plain(horizons, N, B):
     torch.cuda.synchronize()
     assert (riccati_sweep_terminal.launches, forward_rollout.launches,
             riccati_sweep.launches) == (n4 + 1, n5 + 1, n6 + 1)
+
+
+def _rollout_case(horizons, B, N, seed):
+    """(h, gains, defects, dx0) of B problems on the N=25 golden horizon or
+    the N=100 one (cut to its first N nodes; N=101 repeats its last node),
+    the gains from the fp32 twin of kernel 4 (no kernel needed to make
+    them)."""
+    solver, X, U, p = horizons[25 if N == 25 else 100]
+    n = min(N, solver.N)
+    args, term, dx0 = _sweep_inputs(solver, X, U, p, B, seed=seed, n=n)
+    gains, d = riccati_sweep_terminal_plain(*args, *term), args[10]
+    if N > n:
+        gains, d = (torch.cat([x, x[:, -1:]], 1) for x in (gains, d))
+    return args[2], gains.contiguous(), d.contiguous(), dx0
+
+
+def _assert_rollout(a5):
+    """Kernel 5 against its twin: the bench's rel |d(dU, dX)| gate, or no
+    further from the float64 rollout than twice the twin plus 1e-4 (as
+    chip_smoke.py holds it)."""
+    out_k = forward_rollout(*a5)
+    out_p = forward_rollout_plain(*a5)
+    out64 = forward_rollout_plain(a5[0], *(x.double() for x in a5[1:]))
+    B, N = a5[1].shape[:2]
+    assert out_k[0].shape == (B, N + 1, 36) and out_k[1].shape == (B, N, 30)
+    r = max(_max_rel(a, b) for a, b in zip(out_k, out_p))
+    r_k, r_p = (max(_max_rel(a.double(), b) for a, b in zip(o, out64)) for o in (out_k, out_p))
+    assert r <= 1e-3 or r_k <= 2.0 * r_p + 1e-4, (r, r_k, r_p)
+    return out_k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 256, 512])
+@pytest.mark.parametrize("N", [1, 25, 100, 101])
+def test_forward_rollout_kernel_shapes(horizons, N, B):
+    """Kernel 5 at one problem, a ragged batch, the N=100 chain's batch and
+    twice it, over one node, the jacfwd route's 25, the long horizon's 100
+    and 101 (odd B N: the tensor's last node starts 16-byte aligned, and
+    its window is cut short), one launch a call."""
+    a5 = _rollout_case(horizons, B, N, seed=N + B)
+    n0 = forward_rollout.launches
+    _assert_rollout(a5)
+    torch.cuda.synchronize()
+    assert forward_rollout.launches == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset_nodes", [1, 2])
+def test_forward_rollout_kernel_takes_views(horizons, offset_nodes):
+    """Gains and defects as views that start inside their storage (one node
+    in: 8 mod 16 bytes, copied by the wrapper to an aligned tensor; two
+    nodes: aligned, taken as they are): the same result as the whole
+    tensors' rows."""
+    h, gains, d, dx0 = _rollout_case(horizons, 33, 25, seed=5)
+    whole = forward_rollout(h, gains, d, dx0)
+    k = offset_nodes
+    big_g = torch.cat([gains.reshape(-1)[:k * 1110], gains.reshape(-1)])
+    big_d = torch.cat([d.reshape(-1)[:k * 36], d.reshape(-1)])
+    g_view = big_g[k * 1110:].view(33, 25, 30, 37)
+    d_view = big_d[k * 36:].view(33, 25, 36)
+    assert g_view.storage_offset() == k * 1110 and g_view.data_ptr() % 16 == 8 * (k % 2)
+    for a, b in zip(forward_rollout(h, g_view, d_view, dx0), whole):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_forward_rollout_kernel_attributes(card):
+    """No local memory (stack or spills), and the layout the design states:
+    one warp a block and at least four blocks resident an SM (B=512 in one
+    wave over 132 SMs)."""
+    from iterative_learning_nmpc_tpu_torch.ops import _build
+    from iterative_learning_nmpc_tpu_torch.ops.riccati import kernel_attributes
+
+    regs, local, blocks = kernel_attributes()["forward_rollout"]
+    assert local == 0 and blocks >= 4, (regs, local, blocks)
+    assert _build.ptxas_report(_build.CSRC / "riccati.cu")["forward_rollout_kernel"][1:] == (
+        0, 0, 0)
 
 
 @pytest.mark.cuda
