@@ -88,10 +88,13 @@ device plant). Phases, one line each:
  16. riccati_mode="sequential" and "associative" raise NotImplementedError,
  17. the bf16 policy (make_fused_policy_pd with compute_dtype=bfloat16, on
      the tensor cores) on phase 10's observations at B = 256, 1000 and 4096,
-     counters set to 0 before the three calls: against its plain twin
-     (one bf16 ulp of the output scale) and the fp32 kernel (2^-5 of it),
-     timed both ways beside the bf16 addmm chain on cuBLAS, with phase 10's
-     times of the fp32 kernel and chain,
+     and seeded nets of hidden widths (132, 100, 260) and 3 x 1024 at
+     B=256, counters set to 0 before the five calls: against its plain twin
+     (one bf16 ulp of the output scale) and fp32 serving (2^-5 of it), with
+     its attributes (registers, local bytes, shared memory, resident and
+     launched clusters, rows a tile, ring slots) at each shape, the shipped
+     net timed both ways beside the bf16 addmm chain on cuBLAS, with phase
+     10's times of the fp32 kernel and chain,
  18. the card's ceilings: fma_chain against its twin, then its fp32 FMA rate
      at full size (counters as above), and the HBM rate of x + 1.0 over 1 GiB,
  19. one Riccati node's factorize-and-solve under three thread mappings (a
@@ -147,6 +150,9 @@ PEAK_FLOPS, PEAK_TC_FLOPS, PEAK_BYTES = 67.0e12, 989.0e12, 3.35e12
 # the probes (phases 17-19): the bf16 policy at the fp32 policy's batches,
 # the node solve at the reference probe's batch and at the sweep's
 BF16_ULP = 2.0 ** -8
+# phase 17's seeded nets beside the shipped one: uneven hidden widths (the
+# factory pads them to 144, 112, 272) and the bf16 kernel's widest, 3 x 1024
+BF16_WIDTHS = ((132, 100, 260), (1024, 1024, 1024))
 NODE_B, NODE_N, NODE_B_SWEEP, NODE_REL = 1024, 25, 256, 1e-5
 
 
@@ -806,29 +812,42 @@ def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launc
 def policy_bf16_phase(dev, card, pp_args, fp32_times, kernels, record) -> None:
     """Phase 17: the policy served through make_fused_policy_pd with
     compute_dtype=bfloat16 (kernel 8b) on phase 10's observations at
-    B = 256, 1000 (a ragged tile) and 4096, counters set to 0 before the
-    three calls: each against its plain twin and against the fp32 kernel,
-    and timed eagerly and by device time (CUDA-graph replay) beside the bf16
-    addmm chain on cuBLAS; the fp32 kernel's and chain's times are phase
-    10's (``fp32_times``)."""
+    B = 256, 1000 (a ragged tile) and 4096, then seeded nets of widths
+    (47, 132, 100, 260, 12) and (47, 1024, 1024, 1024, 12) at B=256
+    (``BF16_WIDTHS``), counters set to 0 before the five calls: each
+    against its plain twin and against fp32 serving (the fp32 kernel; the
+    fp32 addmm chain for the 1024-wide net, which kernel 8 refuses), the
+    kernel's attributes at each shape, and the shipped net timed eagerly
+    and by device time (CUDA-graph replay) beside the bf16 addmm chain on
+    cuBLAS; the fp32 kernel's and chain's times are phase 10's
+    (``fp32_times``)."""
     import torch
 
+    from iterative_learning_nmpc_tpu_torch.interop import random_policy_payload
     from iterative_learning_nmpc_tpu_torch.ops.policy_pd import (
-        bf16_layers, make_fused_policy_pd, policy_pd, policy_pd_bf16, policy_pd_bf16_plain)
+        bf16_kernel_attributes, bf16_layers, fold_batchnorm, make_fused_policy_pd, policy_pd,
+        policy_pd_bf16, policy_pd_bf16_plain, policy_pd_plain)
     from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms, graph_time_ms
 
     layers = pp_args[B_ENV][0]                    # the served fp32 layers, on dev
     fn = make_fused_policy_pd(layers, POLICY_KP, POLICY_KD, compute_dtype=torch.bfloat16,
                               device=dev)
+    nets = {}
+    for widths in BF16_WIDTHS:
+        folded = fold_batchnorm(random_policy_payload(3, widths, sum(widths))["variables"])
+        ls = [tuple(torch.as_tensor(t, device=dev) for t in l) for l in folded]
+        nets[widths] = (ls, make_fused_policy_pd(ls, POLICY_KP, POLICY_KD,
+                                                 compute_dtype=torch.bfloat16, device=dev))
+    x256 = pp_args[B_ENV][3:]
     for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
     outs = {nb: fn(*a[3:]) for nb, a in pp_args.items()}
+    outs.update({w: f(*x256) for w, (_, f) in nets.items()})
     torch.cuda.synchronize()
     n_launch = policy_pd_bf16.launches
-    if n_launch != len(pp_args):
-        fail(f"the bf16 factory launched policy_pd_bf16 {n_launch} times for "
-             f"{len(pp_args)} calls")
+    if n_launch != len(outs):
+        fail(f"the bf16 factory launched policy_pd_bf16 {n_launch} times for {len(outs)} calls")
     bl = bf16_layers(layers, dev)
     w4 = bl[3][0][:, :bl[3][1].shape[0]].contiguous()
 
@@ -842,52 +861,74 @@ def policy_bf16_phase(dev, card, pp_args, fp32_times, kernels, record) -> None:
         a = h.float()
         return a, POLICY_KP * (a - qj) - POLICY_KD * vj
 
-    rows = {}
-    for nb, a in pp_args.items():
-        x, qj, vj = a[3:]
-        ak, tk = outs[nb]
-        ap, tp = policy_pd_bf16_plain(layers, POLICY_KP, POLICY_KD, x, qj, vj)
-        af, _ = policy_pd(layers, POLICY_KP, POLICY_KD, x, qj, vj)
+    def held(key, ls, x, qj, vj, fp32):
+        """(max error to the twin, within the gates, the gates' text): one
+        bf16 ulp of the output scale against the twin, kp times that + 1e-3
+        for tau; 2^-5 of it against fp32 serving (``fp32``)."""
+        ak, tk = outs[key]
+        ap, tp = policy_pd_bf16_plain(ls, POLICY_KP, POLICY_KD, x, qj, vj)
+        af, _ = fp32(ls, POLICY_KP, POLICY_KD, x, qj, vj)
         scale = max(1.0, float(ap.abs().max()))
         e_a, e_t = float((ak - ap).abs().max()), float((tk - tp).abs().max())
         gap = float((ak - af).abs().max()) / scale
         # an fp32 summation-order difference can flip one bf16 rounding of an
         # activation at a later layer's input: one bf16 ulp of the output
-        # scale, kp times that for tau; the fp32 kernel within the three
+        # scale, kp times that for tau; fp32 serving within the three
         # layers' bf16 roundings, 2^-5 of the output scale
         ok = (e_a <= BF16_ULP * scale and e_t <= POLICY_KP * BF16_ULP * scale + 1e-3
               and gap <= 2.0 ** -5)
+        return max(e_a, e_t), ok, (f"vs twin |d act| {e_a:.3e} (<= {BF16_ULP * scale:.3e}), "
+                                   f"|d tau| {e_t:.3e}; vs fp32 serving ({fp32.__name__}) "
+                                   f"{gap:.3e} of the output scale (<= {2.0 ** -5:.3e})")
+
+    def attrs_text(B, dims):
+        at = bf16_kernel_attributes(B, dims, dev)
+        return at, ", ".join(f"{k} {v}" for k, v in at.items())
+
+    rows, attrs = {}, {}
+    for nb, a in pp_args.items():
+        x, qj, vj = a[3:]
+        err, ok, txt = held(nb, layers, x, qj, vj, policy_pd)
         ms = cuda_time_ms(lambda: fn(x, qj, vj), 50)
         plain_ms = cuda_time_ms(lambda: policy_pd_bf16_plain(layers, POLICY_KP, POLICY_KD,
                                                              x, qj, vj), 20)
         chain16 = cuda_time_ms(lambda: cublas_bf16(x, qj, vj), 20)
         device_ms = graph_time_ms(lambda: fn(x, qj, vj))
         device_chain16 = graph_time_ms(lambda: cublas_bf16(x, qj, vj))
-        rows[nb] = (max(e_a, e_t), ok, ms, plain_ms, chain16, device_ms, device_chain16,
-                    (x, qj, vj), (ak, tk))
+        rows[nb] = (err, ok, ms, plain_ms, chain16, device_ms, device_chain16, (x, qj, vj),
+                    outs[nb])
         t32 = {k: v[nb] for k, v in fp32_times.items()}
-        print(f"[policy_pd_bf16] B={nb}: vs twin |d act| {e_a:.3e} (<= {BF16_ULP * scale:.3e}), "
-              f"|d tau| {e_t:.3e}; vs the fp32 kernel {gap:.3e} of the output scale "
-              f"(<= {2.0 ** -5:.3e}); bf16 kernel {ms:.4f} ms (device {device_ms:.4f}), "
-              f"twin {plain_ms:.4f} ms, bf16 addmm chain on cuBLAS {chain16:.4f} ms (device "
-              f"{device_chain16:.4f}); phase 10's fp32 kernel {t32['ms_by_batch']:.4f} ms "
-              f"(device {t32['device_ms_by_batch']:.4f}), fp32 chain "
-              f"{t32['library_chain_ms']:.4f} ms (device {t32['device_chain_ms']:.4f}) "
-              f"({card})", flush=True)
+        attrs[nb], at_txt = attrs_text(nb, [x.shape[1]] + [int(b.shape[0]) for _, b in layers])
+        print(f"[policy_pd_bf16] B={nb}: {txt}; bf16 kernel {ms:.4f} ms (device "
+              f"{device_ms:.4f}), twin {plain_ms:.4f} ms, bf16 addmm chain on cuBLAS "
+              f"{chain16:.4f} ms (device {device_chain16:.4f}); phase 10's fp32 kernel "
+              f"{t32['ms_by_batch']:.4f} ms (device {t32['device_ms_by_batch']:.4f}), fp32 chain "
+              f"{t32['library_chain_ms']:.4f} ms (device {t32['device_chain_ms']:.4f}); "
+              f"attributes: {at_txt} ({card})", flush=True)
+    for widths, (ls, _) in nets.items():
+        fp32 = policy_pd_plain if max(widths) > 512 else policy_pd
+        err, ok, txt = held(widths, ls, *x256, fp32)
+        rows[widths] = (err, ok)
+        padded = [int(b.shape[0]) for _, b in bf16_layers(ls, dev)]   # as the factory pads
+        attrs[widths], at_txt = attrs_text(B_ENV, (47, *padded))
+        print(f"[policy_pd_bf16] widths 47 -> {' -> '.join(map(str, widths))} -> 12, "
+              f"B={B_ENV}: {txt}; attributes: {at_txt} ({card})", flush=True)
     err, ok, ms, plain_ms, _, _, _, (x, qj, vj), out = rows[B_ENV]
     (W1, _), (W2, _), (W3, _), (W4, b4) = bl
     B, n_in, h1, h2, h3, n_out = x.shape[0], *W1.shape, W2.shape[1], W3.shape[1], b4.shape[0]
     work = (2.0 * B * n_in * h1, 2.0 * B * (h1 * h2 + h2 * h3 + h3 * n_out),
             distinct_bytes([x, qj, vj, *(t for l in bl for t in l), *out]))
+    shapes = [f"B={nb}" for nb in pp_args] + [f"widths {w} at B={B_ENV}" for w in nets]
     record("policy_pd_bf16", "iterative_learning_nmpc_tpu_torch/csrc/policy_pd_bf16.cu",
            "iterative_learning_nmpc_tpu/ops/policy_kernel.py:65", max(r[0] for r in rows.values()),
            all(r[1] for r in rows.values()),
            "|d act| <= 2^-8 max(1, |act|), |d tau| <= kp 2^-8 max(1, |act|) + 1e-3 against the "
-           "twin, |d act| <= 2^-5 max(1, |act|) against the fp32 kernel, at B = "
-           + ", ".join(map(str, rows)), ms, plain_ms, None, None, out, n_launch=n_launch,
-           work=work, extra={key: {nb: r[i] for nb, r in rows.items()} for i, key in
-                             ((2, "ms_by_batch"), (4, "library_chain_ms"),
-                              (5, "device_ms_by_batch"), (6, "device_chain_ms"))})
+           "twin, |d act| <= 2^-5 max(1, |act|) against fp32 serving, at " + ", ".join(shapes),
+           ms, plain_ms, None, None, out, n_launch=n_launch, work=work,
+           extra={**{key: {nb: r[i] for nb, r in rows.items() if len(r) > 2} for i, key in
+                     ((2, "ms_by_batch"), (4, "library_chain_ms"), (5, "device_ms_by_batch"),
+                      (6, "device_chain_ms"))},
+                  "kernel_attributes": {str(k): v for k, v in attrs.items()}})
 
 
 def ceiling_phase(dev, card, kernels, record):

@@ -105,24 +105,26 @@ def policy_from_numpy(payload, device=None):
     return net.eval().to(dev), norm
 
 
-def random_policy_payload(n_hidden: int, width: int, seed: int, q_stand=None) -> dict:
+def random_policy_payload(n_hidden: int, width, seed: int, q_stand=None) -> dict:
     """A seeded policy payload in the JAX package's layout (Flax variables
     with batch norm and random running statistics, no input statistics,
-    net_config) of 47 -> width x n_hidden -> 12, for tests and the smoke
-    run. With ``q_stand`` (12 joint angles), the last layer's weights are
-    scaled by 1e-2 and its bias is q_stand, so that the policy holds the
-    stance."""
+    net_config) of 47 -> width x n_hidden -> 12 (``width`` an int, or one
+    width per hidden layer), for tests and the smoke run. With ``q_stand``
+    (12 joint angles), the last layer's weights are scaled by 1e-2 and its
+    bias is q_stand, so that the policy holds the stance."""
     rng = np.random.default_rng(seed)
-    dims = (47,) + (width,) * n_hidden + (12,)
+    widths = (width,) * n_hidden if isinstance(width, int) else tuple(width)
+    dims = (47,) + widths + (12,)
     params, stats = {}, {}
     for i in range(n_hidden + 1):
         params[f"Dense_{i}"] = {"kernel": rng.normal(0, dims[i] ** -0.5, dims[i:i + 2]),
                                 "bias": rng.normal(0, 0.1, dims[i + 1])}
         if i < n_hidden:
-            params[f"BatchNorm_{i}"] = {"scale": rng.uniform(0.5, 1.5, width),
-                                        "bias": rng.normal(0, 0.1, width)}
-            stats[f"BatchNorm_{i}"] = {"mean": rng.normal(0, 0.1, width),
-                                       "var": rng.uniform(0.5, 2.0, width)}
+            h = dims[i + 1]
+            params[f"BatchNorm_{i}"] = {"scale": rng.uniform(0.5, 1.5, h),
+                                        "bias": rng.normal(0, 0.1, h)}
+            stats[f"BatchNorm_{i}"] = {"mean": rng.normal(0, 0.1, h),
+                                       "var": rng.uniform(0.5, 2.0, h)}
     if q_stand is not None:
         last = params[f"Dense_{n_hidden}"]
         last["kernel"] *= 1e-2

@@ -49,6 +49,7 @@ SIGNATURES = {
     "policy_pd_smem_bytes": [_I] * 5,
     "policy_pd_attributes": [_I] * 5 + [_P],
     "policy_pd_bf16_launch": [_P] * 13 + [_I] * 7 + [_F, _F, _P],
+    "policy_pd_bf16_attributes": [_I] * 6 + [_P],
     "fma_chain_launch": [_P, _P, _P, _I, _I, _I, _P],
     "node_solve_block_launch": [_P] * 9 + [_I, _P],
     "node_solve_warp_launch": [_P] * 9 + [_I, _P],

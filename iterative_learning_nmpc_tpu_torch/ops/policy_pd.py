@@ -10,7 +10,9 @@ tensors take the twins; CUDA tensors launch the kernels or raise.
 from ``fold_batchnorm``; the kernels take exactly four (three hidden
 layers), as the TPU kernel. ``kernel_takes`` states which widths kernel 8
 takes; ``policy_pd_dense`` serves every other shape on the card, as the
-JAX package serves any net outside its Pallas kernel.
+JAX package serves any net outside its Pallas kernel. The factory pads
+hidden widths with zeros to the kernels' multiples (``pad_hidden``), so it
+takes every width the JAX kernel takes, up to each kernel's limit.
 """
 from __future__ import annotations
 
@@ -192,13 +194,49 @@ def policy_pd_bf16_plain(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp
     return h, kp * (h - qj) - kd * vj
 
 
+# kernel 8b's widths: hidden layers multiples of BF16_MULTIPLE, at most
+# BF16_HIDDEN_MAX (csrc/policy_pd_bf16.cu PB_HMAX); W4 16 columns wide
+BF16_MULTIPLE, BF16_HIDDEN_MAX, BF16_N4 = 16, 1024, 16
+
+
+def _refusal_bf16(dims: Sequence[int]) -> Optional[str]:
+    """Why kernel 8b does not take a net of widths dims = (n_in, h1, h2, h3,
+    n_out), or None: four layers, hidden widths multiples of 16 and at most
+    1024 (the factory pads any width to 16), n_out <= 16."""
+    if len(dims) != 5:
+        return f"the kernel takes 4 layers, got {len(dims) - 1}"
+    hidden = list(dims[1:4])
+    if any(h % BF16_MULTIPLE or not 0 < h <= BF16_HIDDEN_MAX for h in hidden):
+        return (f"the kernel takes hidden widths that are multiples of {BF16_MULTIPLE} and at "
+                f"most {BF16_HIDDEN_MAX}, got {hidden}")
+    if not 0 < dims[4] <= BF16_N4:
+        return f"the kernel takes n_out <= {BF16_N4}, got {dims[4]}"
+    return None
+
+
+def bf16_kernel_attributes(B: int, dims: Sequence[int], device: torch.device) -> dict:
+    """Kernel 8b as a launch of B rows at dims = (n_in, h1, h2, h3, n_out)
+    takes it on ``device``: registers and local bytes a thread, static and
+    dynamic shared bytes a block, the clusters the card holds at once
+    (cudaFuncGetAttributes, cudaOccupancyMaxActiveClusters), rows a tile,
+    clusters launched and ring slots."""
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(device):
+        _build.check(_build.library().policy_pd_bf16_attributes(int(B), *map(int, dims), out),
+                     "policy_pd_bf16_attributes")
+    return dict(registers=out[0], local_bytes=out[1], static_smem=out[2], dynamic_smem=out[3],
+                max_active_clusters=out[4], rows_per_tile=out[5], clusters=out[6],
+                ring_slots=out[7])
+
+
 def policy_pd_bf16(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: float,
                    kd: float, x: torch.Tensor, qj: torch.Tensor, vj: torch.Tensor):
     """The bf16 policy step on the tensor cores; same contract as
     policy_pd_bf16_plain. ``layers`` as ``bf16_layers`` makes them: W1, every
     bias float32; W2 (h1, h2), W3 (h2, h3) bfloat16 with h1, h2, h3 multiples
-    of 16; W4 (h3, 16) bfloat16, zero past the n_out = len(b4) <= 16
-    columns."""
+    of 16 and at most 1024; W4 (h3, 16) bfloat16, zero past the n_out =
+    len(b4) <= 16 columns. On a CUDA tensor, one launch of kernel 8b
+    (csrc/policy_pd_bf16.cu)."""
     if x.device.type == "cpu":
         return policy_pd_bf16_plain(layers, kp, kd, x, qj, vj)
     if x.device.type != "cuda":
@@ -207,17 +245,18 @@ def policy_pd_bf16(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: floa
         raise ValueError(f"policy_pd_bf16: the kernel takes 4 layers, got {len(layers)}")
     (W1, b1), (W2, b2), (W3, b3), (W4, b4) = layers
     B, n_in = x.shape
-    h1, h2, h3, n4, n_out = (int(W1.shape[1]), int(W2.shape[1]), int(W3.shape[1]),
-                             int(W4.shape[1]), int(b4.shape[0]))
-    if any(h % 16 for h in (h1, h2, h3)) or n4 != 16 or not 0 < n_out <= 16:
-        raise ValueError(f"policy_pd_bf16: hidden widths must be multiples of 16 and W4 "
-                         f"16 columns wide for n_out <= 16, got {(h1, h2, h3, n4, n_out)}")
+    h1, h2, h3, n_out = (int(W1.shape[1]), int(W2.shape[1]), int(W3.shape[1]),
+                         int(b4.shape[0]))
+    why = _refusal_bf16((n_in, h1, h2, h3, n_out))
+    if why is not None:
+        raise ValueError(f"policy_pd_bf16: {why}")
     x, qj, vj = x.contiguous(), qj.contiguous(), vj.contiguous()
     _check("policy_pd_bf16", "x", x, (B, n_in))
     _check("policy_pd_bf16", "qj", qj, (B, n_out))
     _check("policy_pd_bf16", "vj", vj, (B, n_out))
     _check("policy_pd_bf16", "W1", W1, (n_in, h1))
-    for i, (W, shape) in enumerate(((W2, (h1, h2)), (W3, (h2, h3)), (W4, (h3, 16))), start=2):
+    for i, (W, shape) in enumerate(((W2, (h1, h2)), (W3, (h2, h3)), (W4, (h3, BF16_N4))),
+                                   start=2):
         if W.dtype != torch.bfloat16 or not W.is_contiguous() or tuple(W.shape) != shape:
             raise ValueError(f"policy_pd_bf16: W{i} must be contiguous bfloat16 {shape}, "
                              f"got {W.dtype} {tuple(W.shape)}")
@@ -226,8 +265,8 @@ def policy_pd_bf16(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: floa
     tensors = (qj, vj, W1, b1, W2, b2, W3, b3, W4, b4)
     if any(t.device != x.device for t in tensors):
         raise ValueError("policy_pd_bf16: every tensor must lie on x's device")
-    if any(t.data_ptr() % 16 for t in (W1, b1, W2, W3, W4)):
-        raise ValueError("policy_pd_bf16: W1, b1 and W2-W4 must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (W1, W2, W3, W4)):
+        raise ValueError("policy_pd_bf16: W1-W4 must be 16-byte aligned")
     act = torch.empty(B, n_out, dtype=torch.float32, device=x.device)
     tau = torch.empty(B, n_out, dtype=torch.float32, device=x.device)
     if B == 0:
@@ -235,8 +274,11 @@ def policy_pd_bf16(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: floa
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _build.library().policy_pd_bf16_launch(
         x.data_ptr(), qj.data_ptr(), vj.data_ptr(), *[t.data_ptr() for l in layers for t in l],
-        act.data_ptr(), tau.data_ptr(), B, n_in, h1, h2, h3, n4, n_out, float(kp), float(kd),
-        stream)
+        act.data_ptr(), tau.data_ptr(), B, n_in, h1, h2, h3, BF16_N4, n_out, float(kp),
+        float(kd), stream)
+    if err == _ERR_SMEM:
+        raise ValueError(f"policy_pd_bf16: no row tile of widths {(n_in, h1, h2, h3, n_out)} "
+                         "fits the card's shared memory")
     _build.check(err, "policy_pd_bf16_launch")
     policy_pd_bf16.launches += 1
     return act, tau
@@ -250,19 +292,35 @@ def _f32(a, dev) -> torch.Tensor:
     return torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
 
 
-def bf16_layers(layers, device=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """The bf16 kernel's weights from folded fp32 layers: W1 and every bias
-    float32; W2-W4 rounded to bfloat16 once (round to nearest even, as the
-    TPU kernel's ``w_ref[:].astype(bfloat16)``), W4 padded to 16 zero
-    columns."""
+def pad_hidden(layers, multiple: int, device=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Folded (W, b) layers as float32 tensors on ``device`` with every
+    hidden width padded with zeros to a multiple of ``multiple``: zero
+    columns of W_l and entries of b_l, zero rows of W_(l+1). A padded unit
+    is relu(0 + 0) = 0 and meets a zero row, so the outputs gain only +0.0
+    terms; n_in and n_out stay as they are."""
     dev = resolve_device(device)
-    out = []
+    out, pad_in = [], 0
     for i, (W, b) in enumerate(layers):
         W, b = _f32(W, dev), _f32(b, dev)
+        pad_out = 0 if i == len(layers) - 1 else -W.shape[1] % multiple
+        W = torch.nn.functional.pad(W, (0, pad_out, 0, pad_in)).contiguous()
+        out.append((W, torch.nn.functional.pad(b, (0, pad_out)).contiguous()))
+        pad_in = pad_out
+    return out
+
+
+def bf16_layers(layers, device=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The bf16 kernel's weights from folded fp32 layers: hidden widths
+    padded to multiples of 16 (``pad_hidden``), W1 and every bias float32;
+    W2-W4 rounded to bfloat16 once (round to nearest even, as the TPU
+    kernel's ``w_ref[:].astype(bfloat16)``), W4 padded to 16 zero columns."""
+    out = []
+    padded = pad_hidden(layers, BF16_MULTIPLE, device)
+    for i, (W, b) in enumerate(padded):
         if i > 0:
             W = W.to(torch.bfloat16)
-        if i == len(layers) - 1 and W.shape[1] < 16:
-            W = torch.nn.functional.pad(W, (0, 16 - W.shape[1])).contiguous()
+        if i == len(padded) - 1 and W.shape[1] < BF16_N4:
+            W = torch.nn.functional.pad(W, (0, BF16_N4 - W.shape[1])).contiguous()
         out.append((W, b))
     return out
 
@@ -271,14 +329,14 @@ def make_fused_policy_pd(layers, kp: float, kd: float, compute_dtype=torch.float
                          device=None):
     """The policy step as one function, the counterpart of the JAX factory
     ``make_fused_policy_pd``: ``fn(x (B, n_in), qj, vj (B, n_out)) -> (act,
-    tau)``. ``compute_dtype`` float32 serves through ``policy_pd``;
-    bfloat16 through ``policy_pd_bf16`` (layer 1 in fp32, layers 2-4 with
-    bf16 inputs and fp32 sums), with its weights rounded here once.
-    ``layers``: folded (W, b) pairs (numpy or tensors); the weights go to
-    ``device`` (the CUDA card unless named)."""
+    tau)``. ``compute_dtype`` float32 serves through ``policy_pd`` (hidden
+    widths padded to multiples of 4); bfloat16 through ``policy_pd_bf16``
+    (layer 1 in fp32, layers 2-4 with bf16 inputs and fp32 sums; widths
+    padded to 16), with its weights rounded here once. ``layers``: folded
+    (W, b) pairs (numpy or tensors); the weights go to ``device`` (the CUDA
+    card unless named)."""
     if compute_dtype == torch.float32:
-        dev = resolve_device(device)
-        ls = [(_f32(W, dev), _f32(b, dev)) for W, b in layers]
+        ls = pad_hidden(layers, 4, device)
         return lambda x, qj, vj: policy_pd(ls, kp, kd, x, qj, vj)
     if compute_dtype == torch.bfloat16:
         ls = bf16_layers(layers, device)

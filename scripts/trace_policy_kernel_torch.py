@@ -14,7 +14,16 @@ peers' slices included) and its output (partial sums, bias, ReLU, pushes),
 layer 4 with its partial sums' pushes, the wait for the peers' partial sums,
 and the PD epilogue.
 
+With ``--bf16`` it traces kernel 8b (``csrc/policy_pd_bf16.cu``, built
+alone with ``-DPB_TRACE``) instead: thread 0 of each block stamps each row tile's phases
+(x into shared memory, layer 1, the wait for every block's layer-1 slice,
+layer 2, the wait for the layer-2 slices, layer 3, layer 4, the wait for the
+partial sums, the PD epilogue), and it prints the median over blocks and
+tiles of each phase's us, a tile's us, the tiles a cluster walks, and the
+traced and shipped kernel's device time.
+
     python3 scripts/trace_policy_kernel_torch.py [--batch 256 1000 4096]
+    python3 scripts/trace_policy_kernel_torch.py --bf16 [--batch 256 1000 4096]
 """
 import argparse
 import ctypes
@@ -52,9 +61,101 @@ def build_traced():
     return lib
 
 
+PHASES_BF16 = ["x", "L1", "L1 wait", "L2", "L2 wait", "L3", "L4", "sums wait", "epilogue"]
+
+
+def build_traced_bf16():
+    """csrc/policy_pd_bf16.cu alone, with its stamps compiled in."""
+    from iterative_learning_nmpc_tpu_torch.ops import _build
+
+    src = _build.CSRC / "policy_pd_bf16.cu"
+    flags = [*_build.NVCC_FLAGS, "-DPB_TRACE"]
+    tag = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    so = _build.BUILD_DIR / f"policy_pd_bf16_traced_{tag}.so"
+    if not so.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *flags, "-shared", "-o", str(so), str(src)], check=True)
+    lib = ctypes.CDLL(str(so))
+    for name in ("policy_pd_bf16_launch", "policy_pd_bf16_attributes"):
+        getattr(lib, name).argtypes = _build.SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.pb_read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return lib
+
+
+def trace_bf16(args, card, dev, folded) -> dict:
+    """Kernel 8b's phases per row tile, at the rows rule's tile."""
+    import numpy as np
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch.ops import _build
+    from iterative_learning_nmpc_tpu_torch.ops.policy_pd import (
+        bf16_layers, make_fused_policy_pd, policy_pd_bf16_plain)
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import graph_time_ms
+
+    layers = bf16_layers(folded, dev)
+    dims = [47] + [int(W.shape[1]) for W, _ in layers[:3]] + [int(layers[3][1].shape[0])]
+    ref_layers = [(torch.as_tensor(W, device=dev), torch.as_tensor(b, device=dev))
+                  for W, b in folded]
+    shipped = make_fused_policy_pd(folded, KP, KD, compute_dtype=torch.bfloat16, device=dev)
+    out = {"card": card, "traces": []}
+    lib = build_traced_bf16()
+    shape = (ctypes.c_int * 2)()
+    lib.pb_trace_shape(shape)
+    tmax, nst = shape
+    for B in args.batch:
+        at = (ctypes.c_int * 8)()
+        _build.check(lib.policy_pd_bf16_attributes(B, *dims, at), "attributes")
+        R, ncl = at[5], at[6]
+        gen = torch.Generator().manual_seed(B)
+        x, qj, vj = (torch.randn(B, n, generator=gen).to(dev) for n in (47, 12, 12))
+
+        def traced():
+            act, tau = (torch.empty(B, dims[-1], device=dev) for _ in range(2))
+            _build.check(lib.policy_pd_bf16_launch(
+                x.data_ptr(), qj.data_ptr(), vj.data_ptr(),
+                *[t.data_ptr() for l in layers for t in l], act.data_ptr(), tau.data_ptr(),
+                B, *dims[:4], 16, dims[4], KP, KD, torch.cuda.current_stream().cuda_stream),
+                "traced policy_pd_bf16")
+            return act, tau
+
+        err = float((traced()[1] - policy_pd_bf16_plain(ref_layers, KP, KD, x, qj, vj)[1])
+                    .abs().max())
+        ms_traced = graph_time_ms(traced)
+        ms = graph_time_ms(lambda: shipped(x, qj, vj))
+        traced()
+        torch.cuda.synchronize()
+        nblk = ncl * 8
+        buf = (ctypes.c_ulonglong * (nblk * tmax * nst))()
+        _build.check(lib.pb_read_stamps(buf, nblk * tmax * nst), "pb_read_stamps")
+        t = np.array(buf, dtype=np.float64).reshape(nblk, tmax, nst) / 1e3   # us
+        tiles = -(-B // R)
+        mine = [(tiles - c + ncl - 1) // ncl for c in range(ncl)]
+        valid = np.array([[it < min(mine[blk // 8], tmax) for it in range(tmax)]
+                          for blk in range(nblk)])
+        d = np.diff(t, axis=2)[valid]                      # (block-tiles, phases)
+        t0 = t[:, 0, 0].min()
+        ends = np.array([t[b, min(mine[b // 8], tmax) - 1, -1] for b in range(nblk)]) - t0
+        rec = dict(B=B, rows=R, clusters=ncl, tiles_max=max(mine), max_abs_dtau=err,
+                   ms_shipped=ms, ms_traced=ms_traced,
+                   phase_us=dict(zip(PHASES_BF16, np.median(d, 0).tolist())),
+                   tile_us=float(np.median(d.sum(1))),
+                   first_tile_us=float(np.median(d[:1].sum(1))),
+                   last_end_us=float(ends.max()))
+        out["traces"].append(rec)
+        print(f"B={B} R={R} ({ncl} clusters, up to {max(mine)} tiles each): shipped "
+              f"{ms * 1e3:.2f} us, traced {ms_traced * 1e3:.2f} us, max|dtau| vs twin "
+              f"{err:.2e}; a tile {rec['tile_us']:.2f} us (median), last block ends "
+              f"{rec['last_end_us']:.2f} us after the first tile starts ({card})", flush=True)
+        print("  phases (median us): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in rec["phase_us"].items()), flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, nargs="+", default=[256, 1000, 4096])
+    ap.add_argument("--bf16", action="store_true", help="trace kernel 8b instead of kernel 8")
     args = ap.parse_args()
 
     import numpy as np
@@ -73,8 +174,12 @@ def main() -> None:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     with open(ARTIFACT, "rb") as f:
-        layers = [(torch.as_tensor(W, device=dev), torch.as_tensor(b, device=dev))
-                  for W, b in fold_batchnorm(pickle.load(f)["variables"])]
+        folded = fold_batchnorm(pickle.load(f)["variables"])
+    if args.bf16:
+        print(json.dumps(trace_bf16(args, card, dev, folded)))
+        return
+    layers = [(torch.as_tensor(W, device=dev), torch.as_tensor(b, device=dev))
+              for W, b in folded]
     dims = [47] + [int(W.shape[1]) for W, _ in layers]
     lib = build_traced()
     rows = lib.pp_trace_rows()

@@ -29,8 +29,8 @@ from iterative_learning_nmpc_tpu_torch.ops.lingram import (
     ROW_GROUPS, gate_failures, gram_gate, lingram, lingram_plain)
 from iterative_learning_nmpc_tpu_torch.ops import probes
 from iterative_learning_nmpc_tpu_torch.ops.policy_pd import (
-    fold_batchnorm, make_fused_policy_pd, policy_pd, policy_pd_bf16, policy_pd_bf16_plain,
-    policy_pd_plain)
+    bf16_kernel_attributes, fold_batchnorm, make_fused_policy_pd, policy_pd, policy_pd_bf16,
+    policy_pd_bf16_plain, policy_pd_plain)
 from iterative_learning_nmpc_tpu_torch.ops.riccati import (
     forward_rollout, forward_rollout_plain, riccati_rollout, riccati_rollout_plain,
     riccati_sweep, riccati_sweep_plain, riccati_sweep_terminal,
@@ -285,6 +285,27 @@ def test_policy_pd_kernel_matches_plain(card, B, width):
     assert policy_pd.launches == n0 + 1
     # fp32 sums over K = 512 in another order: tests/test_policy_kernel.py's
     # bounds, tau scaled by kp
+    torch.testing.assert_close(ak, ap, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(tk, tp, rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [33, 256])
+def test_policy_pd_factory_serves_uneven_widths(card, B):
+    """The fp32 factory at hidden widths (130, 98, 250), which kernel 8
+    refuses as they are: padded with zeros to (132, 100, 252), one launch,
+    held to the unpadded twin within kernel 8's bounds."""
+    dev = torch.device("cuda")
+    layers = fold_batchnorm(random_policy_payload(3, (130, 98, 250), 478)["variables"])
+    fn = make_fused_policy_pd(layers, 20.0, 1.5, device=dev)
+    gen = torch.Generator().manual_seed(B)
+    x, qj, vj = (torch.randn(B, n, generator=gen).to(dev) for n in (47, 12, 12))
+    n0 = policy_pd.launches
+    ak, tk = fn(x, qj, vj)
+    torch.cuda.synchronize()
+    assert policy_pd.launches == n0 + 1
+    ref = [(torch.as_tensor(W, device=dev), torch.as_tensor(b, device=dev)) for W, b in layers]
+    ap, tp = policy_pd_plain(ref, 20.0, 1.5, x, qj, vj)
     torch.testing.assert_close(ak, ap, rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(tk, tp, rtol=2e-4, atol=1e-3)
 
@@ -658,13 +679,21 @@ def test_riccati_kernel_attributes(card):
     assert report["node_solve_block_kernel"][1:] == (0, 0, 0)
 
 
+# kernel 8b: the shipped net at one row, ragged tiles, the datagen batch and
+# the bench batches; seeded nets of uneven widths (padded by the factory to
+# 144, 112, 272: ragged and empty column slices) and of 3 x 1024 (128-column
+# slices, the kernel's widest), at a ragged batch and the datagen batch
+BF16_CASES = ([((512,) * 3, B) for B in (1, 33, 256, 1000, 4096)]
+              + [(w, B) for w in ((132, 100, 260), (1024,) * 3) for B in (33, 256)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 33, 256, 1000])
-def test_policy_pd_bf16_kernel_matches_plain(card, B):
-    """Kernel 8b (bf16 products on the tensor cores) at one row, ragged tiles
-    and the datagen batch, through the factory."""
+@pytest.mark.parametrize("widths, B", BF16_CASES)
+def test_policy_pd_bf16_kernel_matches_plain(card, widths, B):
+    """Kernel 8b (bf16 products on the tensor cores) through the factory."""
     dev = torch.device("cuda")
-    layers = _shipped_layers()
+    layers = (_shipped_layers() if widths == (512,) * 3
+              else fold_batchnorm(random_policy_payload(3, widths, sum(widths))["variables"]))
     fn = make_fused_policy_pd(layers, 20.0, 1.5, compute_dtype=torch.bfloat16, device=dev)
     gen = torch.Generator().manual_seed(B)
     x, qj, vj = (torch.randn(B, n, generator=gen).to(dev) for n in (47, 12, 12))
@@ -682,6 +711,25 @@ def test_policy_pd_bf16_kernel_matches_plain(card, B):
     assert float((tk - tp).abs().max()) <= 20.0 * 2.0 ** -8 * scale + 1e-3
     # against fp32 serving: the bf16 roundings of three layers, 2^-5 of scale
     assert float((ak - af).abs().max()) <= 2.0 ** -5 * scale
+
+
+@pytest.mark.cuda
+def test_policy_pd_bf16_kernel_attributes(card):
+    """The layout kernel 8b's design states (csrc/policy_pd_bf16.cu, ROWS
+    RULE): at B=256 the shipped net runs one pass of 32-row tiles (8
+    clusters of 8 blocks); past one pass of the clusters the card holds (at
+    least 15), 64-row tiles on every one of them; the 3 x 1024 net (128-
+    column slices) 32-row tiles; no instance uses local memory."""
+    dev = torch.device("cuda")
+    dims = (47, 512, 512, 512, 12)
+    at = {B: bf16_kernel_attributes(B, dims, dev) for B in (256, 1000, 4096)}
+    at["1024"] = bf16_kernel_attributes(4096, (47, 1024, 1024, 1024, 12), dev)
+    assert at[256]["rows_per_tile"] == 32 and at[256]["clusters"] == 8, at
+    for B in (1000, 4096):
+        assert at[B]["rows_per_tile"] == 64, at
+        assert at[B]["clusters"] == at[B]["max_active_clusters"] >= 15, at
+    assert at["1024"]["rows_per_tile"] == 32, at
+    assert all(a["local_bytes"] == 0 for a in at.values()), at
 
 
 @pytest.mark.cuda
