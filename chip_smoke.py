@@ -32,8 +32,11 @@ device plant). Phases, one line each:
      run fails) and resident blocks an SM,
   6. one RTI step of the kernel path against the plain path on the card,
   7. dynjac against its plain twin at the controller's shape (M=25) and at
-     M=512*25, and one B=1 RTI step through the dynjac route and through
-     the lingram route, timed with CUDA events,
+     M=512*25, every structural zero of J exact (ops/dynjac.structural_zeros),
+     timed eager and by device time (CUDA-graph replay) at both, with its
+     registers, local bytes (0, or the run fails) and resident blocks an
+     SM; and one B=1 RTI step through the dynjac route and through the
+     lingram route, timed with CUDA events,
   8. the closed loop: LocomotionMPC (Go2 trot, sync mode, phase-aligned
      boot) driving the device plant for 2.0 s at 1 kHz toward 0.3 m/s, with
      the launch counters set to 0 before it and read after it: base
@@ -60,9 +63,12 @@ device plant). Phases, one line each:
      registers, local bytes, shared memory and resident clusters
      (cudaFuncGetAttributes) (it runs after 12, whose rows it takes); and
      ServedPolicy's route (learning/network.py) for the shipped policy
-     ("kernel"), a seeded 4 x 256 and a 3 x 1024 one ("dense", the fp32
-     addmm chain, as the JAX package serves any net), each on those
-     observations against the addmm chain in float64,
+     ("kernel"), a seeded 4 x 256 one ("dense", the fp32 addmm chain, as the
+     JAX package serves any net) and a 3 x 1024 one ("kernel", kernel 8's
+     wide layout), each on those observations against the addmm chain in
+     float64; then the 3 x 1024 net on kernel 8 at the three batches, held
+     to the float64 chain within kernel 8's bound and timed both ways
+     beside the fp32 addmm chain, with its attributes,
  13. SafeDAgger mode: 256 envs x 8 intervals (policy for 20 steps, the MPC
      latched >= 60 steps once engaged), then B=2 x 2 intervals against the
      JAX golden (tests/data/go2_trot_safedagger_golden.npz),
@@ -128,9 +134,11 @@ LOOP_S, V_DES, BUDGET_MS = 2.0, 0.3, 40.0
 ARTIFACT = "policy_go2_trot_ondevice_dagger.pkl"
 B_ENV, NOISE, V_MAX = 256, 0.03, 0.3
 T_POLICY, PROGRESS_GATE = 1000, 0.15      # steps; mean forward metres after 1 s
-# the policy shapes kernel 8 does not take (hidden layers, width), and the
-# steps of the 4 x 256 policy's rollout
-OTHER_NETS, T_OTHER = ((4, 256), (3, 1024)), 200
+# seeded policy shapes beside the shipped one (hidden layers, width, the
+# route ServedPolicy takes: kernel 8 takes 4 layers of hidden widths <=
+# 1024, 3 x 1024 in its wide layout), and the steps of the 4 x 256
+# policy's rollout
+OTHER_NETS, T_OTHER = ((4, 256, "dense"), (3, 1024, "kernel")), 200
 # per-env trajectories decorrelate within ~0.3 s (stiff contact, policy
 # feedback), so which envs fall is not reproducible across fp32 libraries:
 # the JAX package on the CPU drops 0, 1, 2, 4, 4 of 256 over noise seeds 0-4
@@ -374,7 +382,7 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
     if not (e_q <= 5e-3 and e_vb <= 0.1 and e_v10 <= 2e-3):
         fail("policy rollout env 0 disagrees with the JAX golden")
     # a 5-layer policy, which kernel 8 does not take, served by the dense route
-    n_hidden, width = OTHER_NETS[0]
+    n_hidden, width, _ = OTHER_NETS[0]
     other = policy_from_numpy(random_policy_payload(n_hidden, width, SEED, q_stand=q0[6:]),
                               device=dev)
     rollout5 = device_sim.make_batched_policy_rollout(spec_d, other, T_OTHER, device=dev)
@@ -460,8 +468,8 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
     goal = torch.as_tensor(vd, device=dev)
     nets = [("shipped", served, "kernel")] + [
         (f"{nh} x {wd}", ServedPolicy(*policy_from_numpy(random_policy_payload(nh, wd, SEED),
-                                                         device=dev), device=dev), "dense")
-        for nh, wd in OTHER_NETS]
+                                                         device=dev), device=dev), route)
+        for nh, wd, route in OTHER_NETS]
     for name, sp, want in nets:
         n0 = (policy_pd.launches, policy_pd_dense.calls)
         ak, tk = sp(s44, goal, qj, vj, POLICY_KP, POLICY_KD)
@@ -482,6 +490,33 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
         if sp.route != want or n1 != ((1, 0) if want == "kernel" else (0, 1)) or not ok:
             fail(f"ServedPolicy {name}: route {sp.route} (want {want}), calls {n1}, within the "
                  f"bound {ok}")
+    # the 3 x 1024 net on kernel 8 (its wide layout: 16 rows a cluster,
+    # 128-column slices) at each batch, against the addmm chain in float64
+    # within kernel 8's bound, timed beside the fp32 addmm chain
+    wide = next(sp for name, sp, _ in nets if name == "3 x 1024")
+    wide_results = {}
+    for nb, (_, _, _, _, _, _, a_nb, _) in pp_results.items():
+        a_w = (wide.layers, *a_nb[1:])
+        ak, tk = policy_pd(*a_w)
+        ap, tp = policy_pd_plain([(W.double(), b.double()) for W, b in wide.layers], POLICY_KP,
+                                 POLICY_KD, *(t.double() for t in a_nb[3:]))
+        torch.cuda.synchronize()
+        ak, tk = ak.double(), tk.double()
+        ok_w = bool(((ak - ap).abs() <= 2e-5 + 2e-4 * ap.abs()).all()
+                    and ((tk - tp).abs() <= 1e-3 + 2e-4 * tp.abs()).all())
+        wide_results[nb] = dict(
+            max_abs_err=max(float((ak - ap).abs().max()), float((tk - tp).abs().max())), ok=ok_w,
+            ms=cuda_time_ms(lambda: policy_pd(*a_w), 20),
+            library_chain_ms=cuda_time_ms(lambda: policy_pd_plain(*a_w), 20),
+            device_ms=graph_time_ms(lambda: policy_pd(*a_w)),
+            device_chain_ms=graph_time_ms(lambda: policy_pd_plain(*a_w)))
+    wide_attrs = kernel_attributes([47, 1024, 1024, 1024, 12], dev)
+    print("[policy_pd 3 x 1024] " + "; ".join(
+        f"B={nb}: err to the float64 chain {r['max_abs_err']:.3e} "
+        f"({'within' if r['ok'] else 'OUTSIDE'} kernel 8's bound), kernel {r['ms']:.4f} ms "
+        f"(device {r['device_ms']:.4f}) vs the fp32 addmm chain {r['library_chain_ms']:.4f} ms "
+        f"(device {r['device_chain_ms']:.4f})" for nb, r in wide_results.items())
+        + "; " + ", ".join(f"{k} {v}" for k, v in wide_attrs.items()) + f" ({card})", flush=True)
     err, ok, ms, chain_ms, _, _, args, out_k = pp_results[B_ENV]
     launches["policy_pd"] = pol_launches
     times = {key: {nb: r[i] for nb, r in pp_results.items()} for i, key in
@@ -491,8 +526,12 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
            "iterative_learning_nmpc_tpu/ops/policy_kernel.py:60",
            max(r[0] for r in pp_results.values()), all(r[1] for r in pp_results.values()),
            "|d act| <= 2e-5 + 2e-4 |act|, |d tau| <= 1e-3 + 2e-4 |tau| at B = "
-           + ", ".join(map(str, pp_results)), ms, chain_ms, policy_pd_plain, args, out_k,
-           extra=dict(times, kernel_attributes=attrs))
+           + ", ".join(map(str, pp_results)) + ", and for 3 x 1024 against the float64 chain",
+           ms, chain_ms, policy_pd_plain, args, out_k,
+           extra=dict(times, kernel_attributes=attrs,
+                      wide_3x1024=dict(by_batch=wide_results, kernel_attributes=wide_attrs)))
+    if not all(r["ok"] for r in wide_results.values()):
+        fail("policy_pd at 3 x 1024 is outside kernel 8's bound of the float64 chain")
 
     # ---- 13. SafeDAgger mode ----
     x0b = np.concatenate([noisy_starts(gold_r["q0"][:1], B_ENV, rng),
@@ -538,6 +577,39 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
             and errs["q"] <= 5e-2 and errs["a"] <= 0.15):
         fail("SafeDAgger B=2 disagrees with the JAX golden")
     return {nb: r[6] for nb, r in pp_results.items()}, times
+
+
+def b1_route_ms(solver, X, U, p, reps: int = 20) -> dict:
+    """One B=1 RTI step (linearize + riccati + the merit of the line-search
+    alphas) from (X, U, p), by the dynjac route (``lingram_structured`` on
+    kernel 7) and by the lingram route: ms between CUDA events."""
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac
+    from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram
+    from iterative_learning_nmpc_tpu_torch.ops.riccati import riccati_rollout
+    from iterative_learning_nmpc_tpu_torch.solver.linearize import cost_dual, lingram_structured
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
+
+    spec, w, N = solver.spec, solver.weights, solver.N
+    inc = solver.opt.torque_limit_in_qp
+    alphas = torch.tensor(solver.opt.ls_alphas_steady, device=X.device)
+    nA = len(alphas)
+
+    def step(route):
+        dX, dU = riccati_rollout(
+            spec, w, solver.dt_nodes, float(solver.opt.lm_reg), float(solver.cost.reg_eps_e),
+            *route(), solver._defects(X, U, p), p.x0 - X[:, 0], X[:, -1], p.peak[:, :, -1],
+            p.base_ref_e, p.joint_ref, p.step_height)
+        a = alphas[:, None, None, None]
+        Xc = (X[None] + a * dX[None]).reshape(-1, N + 1, 36)
+        Uc = (U[None] + a * dU[None]).reshape(-1, N, 30)
+        return cost_dual(spec, w, Xc, Uc, p.map(lambda t: t.repeat((nA,) + (1,) * (t.dim() - 1))))
+
+    return {"dynjac_route_ms": cuda_time_ms(lambda: step(lambda: lingram_structured(
+                spec, w, X, U, p, inc, dynjac_fn=dynjac)), reps),
+            "lingram_route_ms": cuda_time_ms(lambda: step(lambda: lingram(
+                spec, w, X, U, p, inc)), reps)}
 
 
 def step_gate(gains_k, gains_p, gains64, h, defects, dx0):
@@ -815,8 +887,7 @@ def policy_bf16_phase(dev, card, pp_args, fp32_times, kernels, record) -> None:
     B = 256, 1000 (a ragged tile) and 4096, then seeded nets of widths
     (47, 132, 100, 260, 12) and (47, 1024, 1024, 1024, 12) at B=256
     (``BF16_WIDTHS``), counters set to 0 before the five calls: each
-    against its plain twin and against fp32 serving (the fp32 kernel; the
-    fp32 addmm chain for the 1024-wide net, which kernel 8 refuses), the
+    against its plain twin and against fp32 serving (the fp32 kernel), the
     kernel's attributes at each shape, and the shipped net timed eagerly
     and by device time (CUDA-graph replay) beside the bf16 addmm chain on
     cuBLAS; the fp32 kernel's and chain's times are phase 10's
@@ -906,8 +977,7 @@ def policy_bf16_phase(dev, card, pp_args, fp32_times, kernels, record) -> None:
               f"{t32['library_chain_ms']:.4f} ms (device {t32['device_chain_ms']:.4f}); "
               f"attributes: {at_txt} ({card})", flush=True)
     for widths, (ls, _) in nets.items():
-        fp32 = policy_pd_plain if max(widths) > 512 else policy_pd
-        err, ok, txt = held(widths, ls, *x256, fp32)
+        err, ok, txt = held(widths, ls, *x256, policy_pd)
         rows[widths] = (err, ok)
         padded = [int(b.shape[0]) for _, b in bf16_layers(ls, dev)]   # as the factory pads
         attrs[widths], at_txt = attrs_text(B_ENV, (47, *padded))
@@ -1053,7 +1123,10 @@ def main() -> None:
     from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore, dyncore_plain
     from iterative_learning_nmpc_tpu_torch.ops.dyncore import (
         kernel_attributes as dyncore_attributes)
-    from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain
+    from iterative_learning_nmpc_tpu_torch.ops.dynjac import (
+        dynjac, dynjac_plain, structural_zeros)
+    from iterative_learning_nmpc_tpu_torch.ops.dynjac import (
+        kernel_attributes as dynjac_attributes)
     from iterative_learning_nmpc_tpu_torch.ops.lingram import (
         gate_failures, gate_summary, gram_gate, kernel_attributes, lingram, lingram_plain)
     from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd, policy_pd_bf16
@@ -1067,8 +1140,7 @@ def main() -> None:
         kernel_attributes as riccati_attributes)
     from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec
     from iterative_learning_nmpc_tpu_torch.sim import device_sim
-    from iterative_learning_nmpc_tpu_torch.solver.linearize import (
-        cost_dual, dyncore_inputs, lingram_structured)
+    from iterative_learning_nmpc_tpu_torch.solver.linearize import dyncore_inputs
     from iterative_learning_nmpc_tpu_torch.solver.sqp import TrajOptSolver
     from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms, graph_time_ms
 
@@ -1304,47 +1376,43 @@ def main() -> None:
                 Un[..., :18].reshape(M, 18).contiguous(), Fe.contiguous())
 
     # the JAX package's tests/test_dynjac_kernel.py bounds: values 1e-5 of
-    # their scale (as dyncore), the Jacobian 3e-5 of its largest entry
+    # their scale (as dyncore), the Jacobian 3e-5 of its largest entry; the
+    # structural zeros exact (the kernel stores zeros there)
+    zeros = structural_zeros().to(dev)
+
     def dynjac_check(args):
         (pk, Jk), (pp, Jp) = dynjac(spec, *args), dynjac_plain(spec, *args)
         e_p, e_J = float((pk - pp).abs().max()), float((Jk - Jp).abs().max())
         b_p = 1e-5 * max(1.0, float(pp.abs().max()))
         b_J = 3e-5 * float(Jp.abs().max())
-        return (pk, Jk), e_p, e_J, b_p, b_J
+        z_ok = bool((Jk[:, zeros] == 0).all())
+        return (pk, Jk), e_p, e_J, b_p, b_J, z_ok
 
     pg = params.replace(lam_ineq=lig)
     args25 = dynjac_case(Xg, Ug, pg)                            # B=1: M=25
     args_big = dynjac_case(Xe, Ue, pe)                          # M=512*25
-    dj_out, e_p, e_J, b_p, b_J = dynjac_check(args25)
-    _, e_p2, e_J2, b_p2, b_J2 = dynjac_check(args_big)
-    ok_dj = e_p <= b_p and e_J <= b_J and e_p2 <= b_p2 and e_J2 <= b_J2
+    dj_out, e_p, e_J, b_p, b_J, z25 = dynjac_check(args25)
+    _, e_p2, e_J2, b_p2, b_J2, z_big = dynjac_check(args_big)
+    ok_dj = e_p <= b_p and e_J <= b_J and e_p2 <= b_p2 and e_J2 <= b_J2 and z25 and z_big
     ms_big = cuda_time_ms(lambda: dynjac(spec, *args_big), 20)
     plain_big = cuda_time_ms(lambda: dynjac_plain(spec, *args_big), 3)
+    dj_device = {M: graph_time_ms(lambda a=a: dynjac(spec, *a))
+                 for M, a in ((25, args25), (args_big[0].shape[0], args_big))}
+    dj_attrs = dynjac_attributes()
+    regs, local, blocks = dj_attrs["dynjac_kernel"]
     print(f"[dynjac] M={args_big[0].shape[0]}: prim err {e_p2:.3e} (<= {b_p2:.3e}), "
-          f"J err {e_J2:.3e} (<= {b_J2:.3e}), {ms_big:.4f} ms vs plain "
-          f"{plain_big:.4f} ms ({card})", flush=True)
+          f"J err {e_J2:.3e} (<= {b_J2:.3e}), structural zeros exact {z25 and z_big}, "
+          f"{ms_big:.4f} ms vs plain {plain_big:.4f} ms; device "
+          + ", ".join(f"M={M} {t:.4f} ms" for M, t in dj_device.items())
+          + f"; {regs} registers, {local} B local a thread, {blocks} blocks an SM ({card})",
+          flush=True)
+    if local > 0:
+        fail(f"dynjac uses {local} B of local memory a thread")
 
-    def b1_step(route):
-        blocks = route()
-        defects = solver._defects(Xg, Ug, pg)
-        dX, dU = riccati_rollout(
-            spec, w, solver.dt_nodes, float(solver.opt.lm_reg),
-            float(solver.cost.reg_eps_e), *blocks, defects, pg.x0 - Xg[:, 0],
-            Xg[:, -1], pg.peak[:, :, -1], pg.base_ref_e, pg.joint_ref,
-            pg.step_height)
-        a = alphas[:, None, None, None]
-        Xc = (Xg[None] + a * dX[None]).reshape(-1, N + 1, 36)
-        Uc = (Ug[None] + a * dU[None]).reshape(-1, N, 30)
-        return cost_dual(spec, w, Xc, Uc,
-                         pg.map(lambda t: t.repeat((nA,) + (1,) * (t.dim() - 1))))
-
-    ms_route_dj = cuda_time_ms(lambda: b1_step(lambda: lingram_structured(
-        spec, w, Xg, Ug, pg, inc, dynjac_fn=dynjac)), 20)
-    ms_route_lg = cuda_time_ms(lambda: b1_step(lambda: lingram(
-        spec, w, Xg, Ug, pg, inc)), 20)
+    b1 = b1_route_ms(solver, Xg, Ug, pg)
     print(f"[b1 step] one B=1 RTI step (linearize + riccati + merit of "
-          f"{nA} alphas): dynjac route {ms_route_dj:.4f} ms, lingram route "
-          f"{ms_route_lg:.4f} ms ({card})", flush=True)
+          f"{nA} alphas): dynjac route {b1['dynjac_route_ms']:.4f} ms, lingram route "
+          f"{b1['lingram_route_ms']:.4f} ms ({card})", flush=True)
 
     # ---- 8. the closed loop on the card ----
     spec_d = go2_spec(device=dev)
@@ -1401,10 +1469,13 @@ def main() -> None:
     record("dynjac", "iterative_learning_nmpc_tpu_torch/csrc/dynjac.cu",
            "iterative_learning_nmpc_tpu/ops/dynjac_kernel.py:573", max(e_p, e_J), ok_dj,
            f"M=25: prim <= {b_p:.3e}, J <= 3e-5 * max|J| = {b_J:.3e} (J err {e_J:.3e}); "
-           f"M={args_big[0].shape[0]}: prim {e_p2:.3e} <= {b_p2:.3e}, J {e_J2:.3e} <= {b_J2:.3e}",
+           f"M={args_big[0].shape[0]}: prim {e_p2:.3e} <= {b_p2:.3e}, J {e_J2:.3e} <= {b_J2:.3e}; "
+           "structural zeros exact",
            cuda_time_ms(lambda: dynjac(spec, *args25), 50),
            cuda_time_ms(lambda: dynjac_plain(spec, *args25), 5),
-           dynjac_plain, (spec, *args25), dj_out, n_launch=loop_launches["dynjac"])
+           dynjac_plain, (spec, *args25), dj_out, n_launch=loop_launches["dynjac"],
+           extra=dict(kernel_attributes=dj_attrs, device_ms_by_M=dj_device,
+                      ms_by_M={args_big[0].shape[0]: ms_big}))
 
     # ---- 9. the controller against the JAX-on-CPU golden ----
     gold = np.load(os.path.join(ROOT, "tests", "data", "go2_trot_closed_loop_golden.npz"))

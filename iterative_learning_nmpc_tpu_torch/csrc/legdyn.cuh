@@ -333,3 +333,176 @@ __device__ void body_pass(const float* C, const S* q, const S* v, const S* a, co
     tau[3 + i] = tang[i];
   }
 }
+
+// ---- the body pass split by leg (dyncore, dynjac) ---------------------------
+// The same recursion as body_pass, cut where the legs meet the trunk:
+// trunk_state (the trunk's frame and motion), leg_chain (one leg's three
+// links, foot and joint torques, and the wrench the leg puts on the
+// trunk), trunk_wrench (the trunk's Newton-Euler with the legs' summed
+// wrench). Every per-thread array is indexed statically, so a caller that
+// runs a leg per thread keeps them in registers. S is float (dyncore) or
+// Dual (dynjac: one tangent direction a thread).
+
+// The trunk's pose, rates and accelerations (world frame) and T, the
+// Euler-rate map, from an evaluation's base coordinates; gravity enters as
+// a base acceleration.
+template <class S>
+struct Trunk {
+  S R[3][3], T[3][3], p[3], v[3], w[3], dv[3], dw[3];
+};
+
+template <class S>
+__device__ __forceinline__ void trunk_state(const S* q, const S* v, const S* a, Trunk<S>& b) {
+  const S cy = s_cos(q[3]), sy = s_sin(q[3]);
+  const S cp = s_cos(q[4]), sp = s_sin(q[4]);
+  const S cr = s_cos(q[5]), sr = s_sin(q[5]);
+  ypr_matrix(cy, sy, cp, sp, cr, sr, b.R);
+  const S z0(0.f), one(1.f);
+  const S T[3][3] = {{-sp, z0, one}, {cp * sr, cr, z0}, {cp * cr, -sr, z0}};
+  const S pd = v[4], rd = v[5];
+  const S Td[3][3] = {{-cp * pd, z0, z0},
+                      {-sp * pd * sr + cp * cr * rd, -sr * rd, z0},
+                      {-sp * pd * cr - cp * sr * rd, -cr * rd, z0}};
+  const S yd[3] = {v[3], v[4], v[5]};
+  const S ydd[3] = {a[3], a[4], a[5]};
+  S w_l[3], t1[3], t2[3], wl_dot[3];
+  mv3(T, yd, w_l);
+  mv3(b.R, w_l, b.w);
+  mv3(Td, yd, t1);
+  mv3(T, ydd, t2);
+  add3(t1, t2, wl_dot);
+  mv3(b.R, wl_dot, b.dw);
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) b.T[i][j] = T[i][j];
+    b.p[i] = q[i];
+    b.v[i] = v[i];
+    b.dv[i] = a[i];
+  }
+  b.dv[2] = a[2] + LEG_GRAVITY;
+}
+
+// Leg `leg`'s three links on the trunk b: q3, v3, a3 its joint angles,
+// rates and accelerations, fe3 its world foot force. Gives its foot point
+// and velocity, its three joint torques, and the wrench (F, M about the
+// world origin) that its links and foot force put on the trunk. Per-thread
+// arrays are indexed statically only; the constants in C by `leg`.
+template <class S>
+__device__ __forceinline__ void leg_chain(const float* C, int leg, const Trunk<S>& b,
+                                          const S q3[3], const S v3[3], const S a3[3],
+                                          const S fe3[3], S p_foot[3], S v_foot[3], S tau3[3],
+                                          S F[3], S M[3]) {
+  S R_p[3][3], p_p[3], w_p[3], v_p[3], dw_p[3], dv_p[3];
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) R_p[i][j] = b.R[i][j];
+    p_p[i] = b.p[i]; w_p[i] = b.w[i]; v_p[i] = b.v[i];
+    dw_p[i] = b.dw[i]; dv_p[i] = b.dv[i];
+  }
+  S Fs[4][3], Ms[4][3], pjs[3][3], axs[3][3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int idx = 3 * leg + k;
+    const float* axis = C + C_AX + 3 * idx;
+    S a_w[3], off[3], p_k[3], Rot[3][3], R_k[3][3];
+    mvc3(R_p, axis, a_w);
+    rodrigues(axis, s_cos(q3[k]), s_sin(q3[k]), Rot);
+    mm3(R_p, Rot, R_k);
+    mvc3(R_p, C + C_JP + 3 * idx, off);
+    add3(p_p, off, p_k);
+    S c1[3], c2[3], c3[3], v_k[3], dv_k[3], w_k[3], dw_k[3], awqd[3];
+    cross3(w_p, off, c1);
+    add3(v_p, c1, v_k);
+    cross3(dw_p, off, c1);
+    cross3(w_p, off, c2);
+    cross3(w_p, c2, c3);
+    for (int i = 0; i < 3; ++i) dv_k[i] = dv_p[i] + c1[i] + c3[i];
+    for (int i = 0; i < 3; ++i) {
+      awqd[i] = a_w[i] * v3[k];
+      w_k[i] = w_p[i] + awqd[i];
+    }
+    cross3(w_p, awqd, c1);
+    for (int i = 0; i < 3; ++i) dw_k[i] = dw_p[i] + a_w[i] * a3[k] + c1[i];
+    // Newton-Euler about the link CoM, inertia products in the body frame
+    S c_w[3], x_c[3], a_c[3], lt[3], li[3], Idw[3], Iw[3];
+    mvc3(R_k, C + C_COM + 3 * idx, c_w);
+    add3(p_k, c_w, x_c);
+    cross3(dw_k, c_w, c1);
+    cross3(w_k, c_w, c2);
+    cross3(w_k, c2, c3);
+    for (int i = 0; i < 3; ++i) a_c[i] = dv_k[i] + c1[i] + c3[i];
+    const float* Il = C + C_IC + 9 * idx;
+    mtv3(R_k, dw_k, lt); cmv3(Il, lt, li); mv3(R_k, li, Idw);
+    mtv3(R_k, w_k, lt);  cmv3(Il, lt, li); mv3(R_k, li, Iw);
+    const float m = C[C_ML + idx];
+    for (int i = 0; i < 3; ++i) Fs[k][i] = a_c[i] * m;
+    cross3(w_k, Iw, c1);
+    cross3(x_c, Fs[k], c2);
+    for (int i = 0; i < 3; ++i) Ms[k][i] = Idw[i] + c1[i] + c2[i];
+    for (int i = 0; i < 3; ++i) {
+      pjs[k][i] = p_k[i];
+      axs[k][i] = a_w[i];
+      p_p[i] = p_k[i]; w_p[i] = w_k[i]; v_p[i] = v_k[i];
+      dw_p[i] = dw_k[i]; dv_p[i] = dv_k[i];
+      for (int j = 0; j < 3; ++j) R_p[i][j] = R_k[i][j];
+    }
+  }
+  // the foot point, its velocity, and the external foot force at it
+  S foot[3], c1[3];
+  mvc3(R_p, C + C_FOOT + 3 * leg, foot);
+  cross3(w_p, foot, c1);
+  for (int i = 0; i < 3; ++i) {
+    p_foot[i] = p_p[i] + foot[i];
+    v_foot[i] = v_p[i] + c1[i];
+    Fs[3][i] = -fe3[i];
+  }
+  cross3(p_foot, Fs[3], Ms[3]);
+  // joint k carries links k..2 and the foot force: sums from the foot up,
+  // which end as the leg's whole wrench
+  for (int i = 0; i < 3; ++i) {
+    F[i] = Fs[3][i];
+    M[i] = Ms[3][i];
+  }
+#pragma unroll
+  for (int k = 2; k >= 0; --k) {
+    S pc[3];
+    for (int i = 0; i < 3; ++i) {
+      F[i] = F[i] + Fs[k][i];
+      M[i] = M[i] + Ms[k][i];
+    }
+    cross3(pjs[k], F, pc);
+    tau3[k] = axs[k][0] * (M[0] - pc[0]) + axs[k][1] * (M[1] - pc[1]) +
+              axs[k][2] * (M[2] - pc[2]);
+  }
+}
+
+// The trunk's Newton-Euler with the legs' summed wrench (F_legs, M_legs):
+// tau6 = [base force 3 | Euler-chart base moment 3].
+template <class S>
+__device__ __forceinline__ void trunk_wrench(const float* C, const Trunk<S>& b,
+                                             const S F_legs[3], const S M_legs[3], S tau6[6]) {
+  S c_w[3], x_c[3], a_c[3], c1[3], c2[3], c3[3], lt[3], li[3], Idw[3], Iw[3];
+  S F_t[3], M_t[3];
+  mvc3(b.R, C + C_COMT, c_w);
+  add3(b.p, c_w, x_c);
+  cross3(b.dw, c_w, c1);
+  cross3(b.w, c_w, c2);
+  cross3(b.w, c2, c3);
+  for (int i = 0; i < 3; ++i) a_c[i] = b.dv[i] + c1[i] + c3[i];
+  mtv3(b.R, b.dw, lt); cmv3(C + C_IT, lt, li); mv3(b.R, li, Idw);
+  mtv3(b.R, b.w, lt);  cmv3(C + C_IT, lt, li); mv3(b.R, li, Iw);
+  const float m_t = C[C_MT];
+  for (int i = 0; i < 3; ++i) F_t[i] = a_c[i] * m_t;
+  cross3(b.w, Iw, c1);
+  cross3(x_c, F_t, c2);
+  for (int i = 0; i < 3; ++i) M_t[i] = Idw[i] + c1[i] + c2[i];
+  S F_tot[3], M_tot[3], n_b[3], n_l[3], tang[3];
+  add3(F_t, F_legs, F_tot);
+  add3(M_t, M_legs, M_tot);
+  cross3(b.p, F_tot, c1);
+  sub3(M_tot, c1, n_b);   // moment about the base origin
+  mtv3(b.R, n_b, n_l);
+  mtv3(b.T, n_l, tang);   // Euler-chart generalized force T^T R_b^T n
+  for (int i = 0; i < 3; ++i) {
+    tau6[i] = F_tot[i];
+    tau6[3 + i] = tang[i];
+  }
+}

@@ -16,15 +16,16 @@
 // blocks of 8 rows) leaves 100 SMs idle and makes every block stream every
 // weight. So the columns are spread over a thread-block cluster.
 //
-// Design. A cluster of PP_CLUSTER = 8 blocks serves R = PP_ROWS = 32 rows;
-// block (rank) c owns column slice c of every hidden layer, cw = 4 ceil(h /
-// 32) <= 64 columns wide (ragged or empty at the end when h is not a
-// multiple of 32), and only ever loads that slice of W1-W3. A block is 8
+// Design. A cluster of PP_CLUSTER = 8 blocks serves R = PP_ROWS = 32 rows
+// (16 past 512 hidden units, below); block (rank) c owns column slice c of
+// every hidden layer, cw = 4 ceil(h / 32) <= CW = 64 columns wide (128 past
+// 512; ragged or empty at the end when h is not a multiple of 32), and only
+// ever loads that slice of W1-W3. A block is 8
 // consumer warps and one producer warp.
 // - Weights arrive by TMA: the producer warp's lane 0 streams the block's
-//   chunks, each one box of a 2-D tensor map (cp.async.bulk.tensor; PP_KC =
-//   128 weight rows x PP_CW = 64 columns at the slice, zeros past the
-//   matrix), into a ring of PP_STAGES = 2 slots of 32 KB that complete on
+//   chunks, each one box of a 2-D tensor map (cp.async.bulk.tensor; KC =
+//   128 weight rows x CW = 64 columns at the slice, or 64 x 128, zeros past
+//   the matrix), into a ring of PP_STAGES = 2 slots of 32 KB that complete on
 //   mbarriers; a second mbarrier per slot, one arrival per consumer warp,
 //   frees it. The stream runs across layer boundaries, so
 //   the next layer's chunks load while the current layer computes. (Tried
@@ -46,8 +47,8 @@
 //   reads only for columns it discards).
 // - A consumer warp owns a 16 x 64 tile (a lane 4 rows x 8 columns: one
 //   broadcast float4 of activations and two conflict-free float4 of weights
-//   feed 32 FMAs) over 1/KS of each chunk's rows; the KS = 8 / (R / 16) = 4
-//   partial tiles are summed through shared memory (red) once per layer,
+//   feed 32 FMAs) over 1/KS of each chunk's rows; the KS = 8 / (R / 16 x
+//   CW / 64) = 4 partial tiles are summed through shared memory (red) once per layer,
 //   then bias and ReLU. The biases and the PD inputs the epilogues need are
 //   read into registers at the start.
 // - The last layer is split over K, not N: each block multiplies the layer-3
@@ -63,10 +64,27 @@
 // the 15 an H100 SXM holds at once). 16 rows were measured slower at B = 256
 // (16 clusters, one more than the card holds, so two waves) and faster only
 // at B <= 240, a batch no serving path runs. Rows past B read zeros and
-// write nothing. Every layer width must be a multiple of 4, h1-h3 <= 512,
-// n_out <= 64, and the weights 16-byte aligned (checked by the wrapper); the
-// widest of n_in, h1, h2 and n_out must leave the block's shared memory
-// within the card's opt-in limit (the launch returns PP_ERR_SMEM if not).
+// write nothing.
+//
+// Two layouts, one kernel (a template on rows R, slice width CW and chunk
+// rows KC), chosen by the widest hidden layer:
+// - hidden widths <= 512 (the shipped net): R = 32, CW = 64, KC = 128. Its
+//   shared memory at the shipped widths: ring 2 x 32 KB + activations 2 x 32
+//   x 512 x 4 B + partial tiles 32 KB + last-layer sums 1,536 B + 168 B of
+//   mbarriers = 231,080 of the 232,448 B a block may take.
+// - hidden widths 513..1024: 16 rows a cluster, 128-column slices (a warp
+//   tile covers one 64-column half of them), 64-row chunks. Activations of
+//   32 rows would take 2 x 32 x 1024 x 4 B = 256 KB alone; at 16 rows they
+//   take 128 KB, and a slot (64 x 128 floats) stays 32 KB. At 47 -> 1024 x3
+//   -> 12: 65,536 + 131,072 + 32,768 + 768 + 168 = 230,312 B. (A
+//   non-portable cluster of 16 with 64-column slices would keep 32 rows but
+//   not the 256 KB of activations.) Each block of a cluster then streams
+//   twice the columns of half as many rows, so a weight byte feeds 16 rows
+//   instead of 32.
+// Every layer width must be a multiple of 4, h1-h3 <= 1024, n_out <= 64,
+// and the weights 16-byte aligned (checked by the wrapper); the widest of
+// n_in, h1, h2 and n_out must leave the block's shared memory within the
+// card's opt-in limit (the launch returns PP_ERR_SMEM if not).
 //
 // Compiled with -DPP_TRACE (scripts/trace_policy_kernel_torch.py), thread 0
 // of each block writes %globaltimer at the ends of its phases into
@@ -78,11 +96,12 @@
 #define PP_CLUSTER 8                   // blocks of a cluster: the column slices
 #define PP_CONSUMERS 256               // 8 consumer warps
 #define PP_THREADS (PP_CONSUMERS + 32)  // and a producer warp
-#define PP_CW 64                       // columns of a slice at most
-#define PP_KC 128                      // weight rows of a hidden layer's chunk
-#define PP_SLOT (PP_KC * PP_CW)        // floats of a ring slot (32 KB)
-#define PP_RED (8 * 16 * PP_CW)        // floats of the partial tiles
-#define PP_ROWS 32                     // rows a cluster serves
+#define PP_HALF 64                     // columns of a warp tile
+#define PP_SLOT 8192                   // floats of a ring slot (32 KB): KC x CW
+#define PP_RED (8 * 16 * PP_HALF)      // floats of the partial tiles
+#define PP_ROWS 32                     // rows a cluster serves, hidden widths <= 512
+#define PP_NARROW 512                  // the widest hidden layer of that layout
+#define PP_HMAX 1024                   // and of the wide one (16 rows, CW = 128)
 #define PP_STAGES 2                    // ring slots
 #define PP_ERR_SMEM (-1)               // the widths need more shared memory than the card has
 
@@ -97,7 +116,7 @@ __device__ unsigned long long pp_stamps[1 << 16];
       pp_stamps[blockIdx.x * PP_STAMPS + (i)] = t_;                           \
     }                                                                         \
   } while (0)
-extern "C" int pp_trace_rows() { return PP_ROWS; }
+extern "C" int pp_trace_rows() { return PP_ROWS; }   // the narrow layout's
 extern "C" int pp_read_stamps(unsigned long long* out, int n) {
   return (int)cudaMemcpyFromSymbol(out, pp_stamps, (size_t)n * 8);
 }
@@ -199,7 +218,7 @@ __device__ __forceinline__ void st_async(unsigned addr, float4 v, unsigned bar) 
       : "memory");
 }
 
-// W1-W3 as 2-D tensor maps with PP_KC x PP_CW boxes; W4 and the rest plain.
+// W1-W3 as 2-D tensor maps with KC x CW boxes; W4 and the rest plain.
 struct PPArgs {
   CUtensorMap map[3];
   const float *x, *qj, *vj;
@@ -211,13 +230,17 @@ struct PPArgs {
 };
 
 __host__ __device__ __forceinline__ int pp_slice(int h) { return 4 * ((h + 31) / 32); }
-// floats of one activation buffer: PP_ROWS rows of the widest layer input
-__host__ __device__ __forceinline__ int pp_act_floats(const int* dims) {
+// whether a net takes the wide layout (16 rows, 128-column slices)
+__host__ __device__ __forceinline__ bool pp_wide(const int* dims) {
+  return dims[1] > PP_NARROW || dims[2] > PP_NARROW || dims[3] > PP_NARROW;
+}
+// floats of one activation buffer: R rows of the widest layer input
+__host__ __device__ __forceinline__ int pp_act_floats(const int* dims, int R) {
   int d = dims[0];
   if (dims[1] > d) d = dims[1];
   if (dims[2] > d) d = dims[2];
   if (pp_slice(dims[3]) > d) d = pp_slice(dims[3]);
-  return PP_ROWS * (4 * ((d + 3) / 4));
+  return R * (4 * ((d + 3) / 4));
 }
 
 __device__ __forceinline__ void slice_of(int h, unsigned rank, int& c0, int& w) {
@@ -226,16 +249,17 @@ __device__ __forceinline__ void slice_of(int h, unsigned rank, int& c0, int& w) 
   w = max(0, min(cw, h - c0));
 }
 
-// The chunk stream of one block: layers 1-3 in boxes of PP_KC weight rows x
-// PP_CW columns at the block's slice, then the block's w3 rows of W4 in
+// The chunk stream of one block: layers 1-3 in boxes of KC weight rows x
+// CW columns at the block's slice, then the block's w3 rows of W4 in
 // chunks of PP_SLOT / n_out rows (at least one, empty for an empty slice).
+template <int KC>
 struct Stream {
   int e1, e2, e3, total;   // first chunk of layers 2, 3, 4; chunks in all
   int step4, w3, c03;
   __device__ Stream(const int* dims, unsigned r) {
-    e1 = (dims[0] + PP_KC - 1) / PP_KC;
-    e2 = e1 + (dims[1] + PP_KC - 1) / PP_KC;
-    e3 = e2 + (dims[2] + PP_KC - 1) / PP_KC;
+    e1 = (dims[0] + KC - 1) / KC;
+    e2 = e1 + (dims[1] + KC - 1) / KC;
+    e3 = e2 + (dims[2] + KC - 1) / KC;
     slice_of(dims[3], r, c03, w3);
     step4 = PP_SLOT / dims[4];
     total = e3 + max(1, (w3 + step4 - 1) / step4);
@@ -243,14 +267,15 @@ struct Stream {
   // chunk g: layer l (0-3) and its first weight row k0
   __device__ void chunk(int g, int& l, int& k0) const {
     l = g < e1 ? 0 : g < e2 ? 1 : g < e3 ? 2 : 3;
-    k0 = l == 0 ? g * PP_KC : l == 1 ? (g - e1) * PP_KC : l == 2 ? (g - e2) * PP_KC
-                                                               : (g - e3) * step4;
+    k0 = l == 0 ? g * KC : l == 1 ? (g - e1) * KC : l == 2 ? (g - e2) * KC
+                                                      : (g - e3) * step4;
   }
 };
 
 // The producer: lane 0 of the last warp streams every chunk, each into its
 // slot once the consumer warps have freed the slot's previous chunk.
-__device__ __forceinline__ void produce(const Stream& st, const PPArgs& a, unsigned rank,
+template <int KC>
+__device__ __forceinline__ void produce(const Stream<KC>& st, const PPArgs& a, unsigned rank,
                                         float* ring, uint64_t* full, uint64_t* empty) {
   for (int g = 0; g < st.total; ++g) {
     const int s = g % PP_STAGES;
@@ -285,21 +310,26 @@ __device__ __forceinline__ void chunk_done(int g, uint64_t* empty, int lane) {
   if (lane == 0) mbar_arrive(&empty[g % PP_STAGES]);
 }
 
+// R rows a cluster, CW columns a slice at most, KC weight rows a chunk
+template <int R, int CW, int KC>
 __global__ void __launch_bounds__(PP_THREADS, 1)
     policy_pd_kernel(const __grid_constant__ PPArgs a) {
-  constexpr int R = PP_ROWS;
+  static_assert(KC * CW == PP_SLOT, "a chunk fills one ring slot");
   constexpr int RT = R / 16;          // row tiles of 16
-  constexpr int KS = 8 / RT;          // warps sharing a row tile over K
+  constexpr int CH = CW / PP_HALF;    // column halves of 64
+  constexpr int TILES = RT * CH;      // warp tiles of 16 x 64
+  constexpr int KS = 8 / TILES;       // warps sharing a warp tile over K
   constexpr int RO = R / PP_CLUSTER;  // rows whose epilogue a block owns
   constexpr int R4 = R / 4;           // groups of 4 rows
+  constexpr int NQ = CW * R4 / PP_CONSUMERS;   // (column, 4 rows) pairs a thread sums
   constexpr int S = PP_STAGES;
   extern __shared__ __align__(128) float smem[];
   const int* dims = a.dims;
   const int n_out = dims[4];
   float* ring = smem;                                  // S x PP_SLOT
   float* h0 = ring + S * PP_SLOT;                      // k-major layer inputs:
-  float* h1 = h0 + pp_act_floats(dims);                // layer l reads h0 or h1
-  float* red = h1 + pp_act_floats(dims);               // PP_RED partial tiles
+  float* h1 = h0 + pp_act_floats(dims, R);             // layer l reads h0 or h1
+  float* red = h1 + pp_act_floats(dims, R);            // PP_RED partial tiles
   float* part = red + PP_RED;                          // 8 x RO x n_out
   uint64_t* full = reinterpret_cast<uint64_t*>(part + R * n_out);
   uint64_t* empty = full + S;
@@ -309,7 +339,7 @@ __global__ void __launch_bounds__(PP_THREADS, 1)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const unsigned rank = cluster_rank();
   const int row0 = (int)(blockIdx.x / PP_CLUSTER) * R;
-  const Stream st(dims, rank);
+  const Stream<KC> st(dims, rank);
   PP_STAMP(0);
 
   if (tid == 0) {
@@ -338,13 +368,13 @@ __global__ void __launch_bounds__(PP_THREADS, 1)
 
   // what the epilogues read from global memory, loaded at the start: each
   // hidden layer's bias at the columns this thread sums, and the PD inputs
-  float bias[3][RT];
+  float bias[3][NQ];
 #pragma unroll
   for (int l = 0; l < 3; ++l) {
     int c0, w;
     slice_of(dims[l + 1], rank, c0, w);
 #pragma unroll
-    for (int q = 0; q < RT; ++q) {
+    for (int q = 0; q < NQ; ++q) {
       const int col = (tid + PP_CONSUMERS * q) / R4;
       bias[l][q] = col < w ? a.b[l][c0 + col] : 0.f;
     }
@@ -369,7 +399,8 @@ __global__ void __launch_bounds__(PP_THREADS, 1)
   PP_STAMP(1);
 
   int g = 0;   // the next chunk to consume
-  const int rt = warp % RT, kg = warp / RT;
+  const int tile = warp % TILES, kg = warp / TILES;
+  const int rt = tile % RT, ch = tile / RT;
   const int rg = lane >> 3, cg = lane & 7;
 #pragma unroll
   for (int l = 0; l < 3; ++l) {
@@ -382,14 +413,14 @@ __global__ void __launch_bounds__(PP_THREADS, 1)
     if (l > 0)   // every block has sent its slice of this layer's input
       for (int p = 0; p < PP_CLUSTER; ++p) mbar_wait_cluster(&xbar[(l - 1) * PP_CLUSTER + p], 0);
     const int K = dims[l];
-    for (int k0 = 0; k0 < K; k0 += PP_KC, ++g) {
-      const int rows = min(PP_KC, K - k0);
-      const float* sw = chunk_wait(g, ring, full);
+    for (int k0 = 0; k0 < K; k0 += KC, ++g) {
+      const int rows = min(KC, K - k0);
+      const float* sw = chunk_wait(g, ring, full) + ch * PP_HALF;
 #pragma unroll 4
       for (int kk = kg; kk < rows; kk += KS) {
         const float4 hv4 = *reinterpret_cast<const float4*>(hrow + (k0 + kk) * R);
-        const float4 wa = *reinterpret_cast<const float4*>(sw + kk * PP_CW + 4 * cg);
-        const float4 wb = *reinterpret_cast<const float4*>(sw + kk * PP_CW + 32 + 4 * cg);
+        const float4 wa = *reinterpret_cast<const float4*>(sw + kk * CW + 4 * cg);
+        const float4 wb = *reinterpret_cast<const float4*>(sw + kk * CW + 32 + 4 * cg);
         const float hv[4] = {hv4.x, hv4.y, hv4.z, hv4.w};
         const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
 #pragma unroll
@@ -401,11 +432,12 @@ __global__ void __launch_bounds__(PP_THREADS, 1)
     }
     PP_STAMP(2 + 2 * l);
     if (l > 0) consumers_sync();   // the previous layer's partial tiles are read
-    // the warp's tile, column-major (red[(warp 64 + col) 16 + row])
+    // the warp's tile, column-major (red[(warp 64 + col) 16 + row], col
+    // within its half)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = (j < 4 ? 4 * cg : 32 + 4 * cg) + (j & 3);
-      *reinterpret_cast<float4*>(red + (warp * PP_CW + col) * 16 + rg * 4) =
+      *reinterpret_cast<float4*>(red + (warp * PP_HALF + col) * 16 + rg * 4) =
           make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
     }
     consumers_sync();
@@ -415,14 +447,15 @@ __global__ void __launch_bounds__(PP_THREADS, 1)
     slice_of(dims[l + 1], rank, c0, w);
     float* hout = l & 1 ? h0 : h1;
 #pragma unroll
-    for (int q = 0; q < RT; ++q) {
+    for (int q = 0; q < NQ; ++q) {
       const int idx = tid + PP_CONSUMERS * q;
       const int col = idx / R4, row = (idx % R4) * 4;
+      const int wt = (col / PP_HALF) * RT + (row >> 4);   // the warp tile holding it
       float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int k = 0; k < KS; ++k) {
         const float4 p = *reinterpret_cast<const float4*>(
-            red + ((k * RT + (row >> 4)) * PP_CW + col) * 16 + (row & 15));
+            red + ((k * TILES + wt) * PP_HALF + col % PP_HALF) * 16 + (row & 15));
         s.x += p.x;
         s.y += p.y;
         s.z += p.z;
@@ -500,18 +533,32 @@ __global__ void __launch_bounds__(PP_THREADS, 1)
   PP_STAMP(10);
 }
 
+// A net's layout: rows a cluster, slice width, chunk rows, the instance.
+typedef void (*PPKernel)(const PPArgs);
+struct PPLayout {
+  int R, CW, KC;
+  PPKernel fn;
+};
+static PPLayout pp_layout(const int* dims) {
+  if (pp_wide(dims)) return {16, 2 * PP_HALF, PP_SLOT / (2 * PP_HALF),
+                             policy_pd_kernel<16, 2 * PP_HALF, PP_SLOT / (2 * PP_HALF)>};
+  return {PP_ROWS, PP_HALF, PP_SLOT / PP_HALF,
+          policy_pd_kernel<PP_ROWS, PP_HALF, PP_SLOT / PP_HALF>};
+}
+
 // Dynamic shared memory of a launch: the ring, two activation buffers, the
 // partial tiles, the last layer's partial sums and the mbarriers (2 S for
 // the ring, 2 x 8 for the slices, 1 for the sums).
 extern "C" int policy_pd_smem_bytes(int n_in, int h1, int h2, int h3, int n_out) {
   const int dims[5] = {n_in, h1, h2, h3, n_out};
-  return (PP_STAGES * PP_SLOT + 2 * pp_act_floats(dims) + PP_RED + PP_ROWS * n_out) * 4 +
+  const int R = pp_layout(dims).R;
+  return (PP_STAGES * PP_SLOT + 2 * pp_act_floats(dims, R) + PP_RED + R * n_out) * 4 +
          (2 * PP_STAGES + 2 * PP_CLUSTER + 1) * 8;
 }
 
-// The device's opt-in shared memory a block, read once per device; the
-// kernel is then allowed to take all of it, so a launch needs no attribute
-// call of its own.
+// The device's opt-in shared memory a block, read once per device; both
+// layouts' kernels are then allowed to take all of it, so a launch needs no
+// attribute call of its own.
 static cudaError_t pp_smem_optin(int* optin) {
   static int known[64] = {};
   int dev = 0;
@@ -523,9 +570,13 @@ static cudaError_t pp_smem_optin(int* optin) {
   }
   err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute((const void*)policy_pd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
-  if (err == cudaSuccess && dev < 64) known[dev] = *optin;
+  for (int wide = 0; wide < 2; ++wide) {
+    const int dims[5] = {0, wide ? PP_HMAX : 4, 4, 4, 4};
+    err = cudaFuncSetAttribute((const void*)pp_layout(dims).fn,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
+    if (err != cudaSuccess) return err;
+  }
+  if (dev < 64) known[dev] = *optin;
   return err;
 }
 
@@ -546,10 +597,12 @@ static void pp_cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr
 
 // The compiled kernel at these widths: out = (registers a thread, local
 // bytes a thread, static shared bytes, dynamic shared bytes, clusters the
-// card can hold at once).
+// card can hold at once, rows a cluster).
 extern "C" int policy_pd_attributes(int n_in, int h1, int h2, int h3, int n_out, int* out) {
+  const int dims[5] = {n_in, h1, h2, h3, n_out};
+  const PPLayout L = pp_layout(dims);
   cudaFuncAttributes at;
-  cudaError_t err = cudaFuncGetAttributes(&at, (const void*)policy_pd_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&at, (const void*)L.fn);
   if (err != cudaSuccess) return (int)err;
   int optin = 0;
   err = pp_smem_optin(&optin);
@@ -560,13 +613,14 @@ extern "C" int policy_pd_attributes(int n_in, int h1, int h2, int h3, int n_out,
   cudaLaunchAttribute attr;
   pp_cluster_config(&cfg, &attr, PP_CLUSTER, smem, nullptr);
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)policy_pd_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)L.fn, &cfg);
   if (err != cudaSuccess) return (int)err;
   out[0] = at.numRegs;
   out[1] = (int)at.localSizeBytes;
   out[2] = (int)at.sharedSizeBytes;
   out[3] = smem;
   out[4] = clusters;
+  out[5] = L.R;
   return 0;
 }
 
@@ -576,8 +630,8 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// W (K x N, row-major fp32) as a tensor map of PP_KC x PP_CW boxes.
-static int pp_encode(CUtensorMap* map, const float* W, int K, int N) {
+// W (K x N, row-major fp32) as a tensor map of KC x CW boxes.
+static int pp_encode(CUtensorMap* map, const float* W, int K, int N, int CW, int KC) {
   static EncodeTiledFn encode = nullptr;
   if (!encode) {
     void* fn = nullptr;
@@ -590,7 +644,7 @@ static int pp_encode(CUtensorMap* map, const float* W, int K, int N) {
   }
   const cuuint64_t size[2] = {(cuuint64_t)N, (cuuint64_t)K};
   const cuuint64_t stride[1] = {(cuuint64_t)N * 4};
-  const cuuint32_t box[2] = {PP_CW, PP_KC};
+  const cuuint32_t box[2] = {(cuuint32_t)CW, (cuuint32_t)KC};
   const cuuint32_t step[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)W, size, stride, box,
                             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
@@ -604,7 +658,7 @@ extern "C" int policy_pd_launch(const float* x, const float* qj, const float* vj
                                 const float* W4, const float* b4, float* act,
                                 float* tau, int B, int n_in, int h1, int h2,
                                 int h3, int n_out, float kp, float kd, void* stream) {
-  if (h1 > 8 * PP_CW || h2 > 8 * PP_CW || h3 > 8 * PP_CW || n_out > PP_CW)
+  if (h1 > PP_HMAX || h2 > PP_HMAX || h3 > PP_HMAX || n_out > PP_HALF)
     return (int)cudaErrorInvalidValue;
   int optin = 0;
   cudaError_t err = pp_smem_optin(&optin);
@@ -614,8 +668,9 @@ extern "C" int policy_pd_launch(const float* x, const float* qj, const float* vj
   PPArgs a;
   const float* W[3] = {W1, W2, W3};
   const int dims[5] = {n_in, h1, h2, h3, n_out};
+  const PPLayout L = pp_layout(dims);
   for (int l = 0; l < 3; ++l) {
-    const int e = pp_encode(&a.map[l], W[l], dims[l], dims[l + 1]);
+    const int e = pp_encode(&a.map[l], W[l], dims[l], dims[l + 1], L.CW, L.KC);
     if (e) return e;
   }
   a.x = x;
@@ -634,8 +689,8 @@ extern "C" int policy_pd_launch(const float* x, const float* qj, const float* vj
   a.kd = kd;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  pp_cluster_config(&cfg, &attr, ((B + PP_ROWS - 1) / PP_ROWS) * PP_CLUSTER, smem, stream);
-  err = cudaLaunchKernelEx(&cfg, policy_pd_kernel, a);
+  pp_cluster_config(&cfg, &attr, ((B + L.R - 1) / L.R) * PP_CLUSTER, smem, stream);
+  err = cudaLaunchKernelEx(&cfg, L.fn, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

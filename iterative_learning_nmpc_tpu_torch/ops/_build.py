@@ -45,6 +45,7 @@ SIGNATURES = {
     "forward_rollout_launch": [_P] * 5 + [_I, _I, _F, _P],
     "riccati_attributes": [_P],
     "dynjac_launch": [_P, _P, _P, _P, _P, _P, _I, _P],
+    "dynjac_attributes": [_P],
     "policy_pd_launch": [_P] * 13 + [_I] * 6 + [_F, _F, _P],
     "policy_pd_smem_bytes": [_I] * 5,
     "policy_pd_attributes": [_I] * 5 + [_P],

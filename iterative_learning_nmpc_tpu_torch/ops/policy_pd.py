@@ -87,16 +87,22 @@ def policy_pd_dense(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: flo
 policy_pd_dense.calls = 0
 
 
+# kernel 8's widths: hidden layers at most HIDDEN_MAX (csrc/policy_pd.cu
+# PP_HMAX; 32 rows a cluster up to 512, 16 past it), n_out at most N_OUT_MAX
+HIDDEN_MAX, N_OUT_MAX = 1024, 64
+
+
 def _refusal(dims: Sequence[int]) -> Optional[str]:
     """Why kernel 8 does not take a net of widths dims = (n_in, h1, ...,
     n_out), or None: it takes four layers, every layer's width a multiple of
-    4, hidden widths <= 512 and n_out <= 64."""
+    4, hidden widths <= 1024 and n_out <= 64."""
     if len(dims) != 5:
         return f"the kernel takes 4 layers, got {len(dims) - 1}"
     if any(d % 4 for d in dims[1:]):
         return f"layer widths must be multiples of 4, got {list(dims)}"
-    if max(dims[1:4]) > 512 or dims[4] > 64:
-        return f"the kernel takes hidden widths <= 512 and n_out <= 64, got {list(dims)}"
+    if max(dims[1:4]) > HIDDEN_MAX or dims[4] > N_OUT_MAX:
+        return (f"the kernel takes hidden widths <= {HIDDEN_MAX} and n_out <= {N_OUT_MAX}, "
+                f"got {list(dims)}")
     return None
 
 
@@ -106,7 +112,8 @@ def kernel_takes(dims: Sequence[int]) -> bool:
     shared memory is not part of the rule: a card that cannot hold it makes
     ``policy_pd`` raise. On an H100 (227 KB a block) it holds every net of
     47 inputs and 12 outputs that the rule accepts, the nets
-    ``ServedPolicy`` serves."""
+    ``ServedPolicy`` serves (231,080 B at 3 x 512, 230,312 B at 3 x
+    1024)."""
     return _refusal([int(d) for d in dims]) is None
 
 
@@ -118,14 +125,15 @@ _ERR_SMEM = -1
 def kernel_attributes(dims: Sequence[int], device: torch.device) -> dict:
     """Kernel 8 as compiled, for dims = (n_in, h1, h2, h3, n_out) on
     ``device``: registers and local bytes a thread (stack frame and
-    spills), static and dynamic shared bytes a block, and the clusters the
+    spills), static and dynamic shared bytes a block, the clusters the
     card holds at once (cudaFuncGetAttributes,
-    cudaOccupancyMaxActiveClusters)."""
-    out = (ctypes.c_int * 5)()
+    cudaOccupancyMaxActiveClusters), and the layout's rows a cluster (32,
+    or 16 past 512 hidden units)."""
+    out = (ctypes.c_int * 6)()
     with torch.cuda.device(device):
         _build.check(_build.library().policy_pd_attributes(*dims, out), "policy_pd_attributes")
     return dict(registers=out[0], local_bytes=out[1], static_smem=out[2], dynamic_smem=out[3],
-                max_active_clusters=out[4])
+                max_active_clusters=out[4], rows_per_cluster=out[5])
 
 
 def policy_pd(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], kp: float,
@@ -330,9 +338,10 @@ def make_fused_policy_pd(layers, kp: float, kd: float, compute_dtype=torch.float
     """The policy step as one function, the counterpart of the JAX factory
     ``make_fused_policy_pd``: ``fn(x (B, n_in), qj, vj (B, n_out)) -> (act,
     tau)``. ``compute_dtype`` float32 serves through ``policy_pd`` (hidden
-    widths padded to multiples of 4); bfloat16 through ``policy_pd_bf16``
+    widths padded to multiples of 4, at most 1024); bfloat16 through ``policy_pd_bf16``
     (layer 1 in fp32, layers 2-4 with bf16 inputs and fp32 sums; widths
-    padded to 16), with its weights rounded here once. ``layers``: folded
+    padded to 16, at most 1024), with its weights rounded here once. On the
+    card a net past either kernel's limit raises at the call, naming it. ``layers``: folded
     (W, b) pairs (numpy or tensors); the weights go to ``device`` (the CUDA
     card unless named)."""
     if compute_dtype == torch.float32:

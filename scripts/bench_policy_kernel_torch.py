@@ -10,7 +10,10 @@ the port of scripts/bench_policy_kernel.py.
      reference's (c). The reference's (b), vmap(net.apply), has no
      counterpart: the port writes the batch dimension out, which is (c);
   d) the bf16 addmm chain on cuBLAS (layer 1 in fp32, layers 2-4 bf16 in and
-     out with fp32 sums), the yardstick of (b).
+     out with fp32 sums), the yardstick of (b);
+  e) a seeded 47 -> 1024 x3 -> 12 net (``interop.random_policy_payload``)
+     on policy_pd (kernel 8's wide layout: 16 rows a cluster, 128-column
+     slices) and on the fp32 addmm chain.
 
 With the shipped policy's folded weights (assets/
 policy_go2_trot_ondevice_dagger.pkl) and seeded normal inputs, it times each
@@ -28,7 +31,8 @@ limit, and last one JSON line.
 ``csrc/policy_pd.cu`` and ``csrc/policy_pd_bf16.cu``, each alone, with its
 nvcc flags and C signatures from its ``ops/_build.py``; their launches must
 take this checkout's arguments) and times each in the same process, in
-turns with this checkout's kernel: parent, this, this, parent.
+turns with this checkout's kernel: parent, this, this, parent, and says
+whether this checkout's fp32 kernel gives the parent's output bit for bit.
 
     python3 scripts/bench_policy_kernel_torch.py [--batch 256 1000 4096] [--reps 20]
         [--root PARENT_TREE]
@@ -92,6 +96,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this bench runs only on a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
+    from iterative_learning_nmpc_tpu_torch.interop import random_policy_payload
     from iterative_learning_nmpc_tpu_torch.ops import _build
     from iterative_learning_nmpc_tpu_torch.ops.policy_pd import (
         bf16_kernel_attributes, bf16_layers, fold_batchnorm, kernel_attributes,
@@ -134,8 +139,13 @@ def main() -> None:
             return act, tau
         return fn
 
+    wide = [(torch.as_tensor(W, device=dev), torch.as_tensor(b, device=dev))
+            for W, b in fold_batchnorm(random_policy_payload(3, 1024, 1024)["variables"])]
+    fp32_wide = make_fused_policy_pd(wide, KP, KD, device=dev)
+    chain_wide = lambda x, qj, vj: policy_pd_plain(wide, KP, KD, x, qj, vj)
     fns = {"fp32_kernel": fp32, "bf16_kernel": bf16, "addmm_chain": chain,
-           "bf16_chain": chain16}
+           "bf16_chain": chain16, "fp32_kernel_3x1024": fp32_wide,
+           "addmm_chain_3x1024": chain_wide}
     turns = ["fp32_kernel", "bf16_kernel"]
     if args.root:
         par = parent_launches(os.path.abspath(args.root))
@@ -146,6 +156,9 @@ def main() -> None:
                  for t in (f"parent_{k}", k, k, f"parent_{k}")]
     attrs = kernel_attributes(dims, dev)
     print("[fp32 attributes] " + ", ".join(f"{k} {v}" for k, v in attrs.items()), flush=True)
+    attrs_wide = kernel_attributes((47, 1024, 1024, 1024, 12), dev)
+    print("[fp32 attributes, 3 x 1024] " + ", ".join(f"{k} {v}" for k, v in attrs_wide.items()),
+          flush=True)
     attrs16 = {B: bf16_kernel_attributes(B, dims, dev) for B in args.batch}
     for B, at in attrs16.items():
         print(f"[bf16 attributes] B={B}: " + ", ".join(f"{k} {v}" for k, v in at.items()),
@@ -154,11 +167,17 @@ def main() -> None:
     for B in args.batch:
         gen = torch.Generator().manual_seed(B)
         x, qj, vj = (torch.randn(B, n, generator=gen).to(dev) for n in (47, 12, 12))
-        ref = chain(x, qj, vj)[1]
+        ref, ref_wide = chain(x, qj, vj)[1], chain_wide(x, qj, vj)[1]
         row = {"B": B}
         for name, fn in fns.items():
-            row[f"{name}_max_dtau"] = float((fn(x, qj, vj)[1] - ref).abs().max())
-        for name in turns + ["addmm_chain", "bf16_chain"]:
+            r = ref_wide if name.endswith("3x1024") else ref
+            row[f"{name}_max_dtau"] = float((fn(x, qj, vj)[1] - r).abs().max())
+        if args.root:
+            row["fp32_bit_equal_to_parent"] = all(
+                torch.equal(a, b) for a, b in zip(fp32(x, qj, vj),
+                                                  fns["parent_fp32_kernel"](x, qj, vj)))
+        for name in turns + ["addmm_chain", "bf16_chain", "fp32_kernel_3x1024",
+                             "addmm_chain_3x1024"]:
             call = lambda: fns[name](x, qj, vj)
             row.setdefault(f"{name}_us", []).append(cuda_time_ms(call, args.reps) * 1e3)
             row.setdefault(f"{name}_device_us", []).append(graph_time_ms(call, args.reps) * 1e3)
@@ -166,10 +185,12 @@ def main() -> None:
         print(f"B={B:5d}: " + " | ".join(
             f"{k[:-3]} " + ", ".join(f"{v:.2f}" for v in row[k]) + " us"
             for k in row if k.endswith("_us")) + " | max|dtau| vs the chain: " + ", ".join(
-            f"{k[:-9]} {row[k]:.2e}" for k in row if k.endswith("_max_dtau")) + f" ({card})",
-              flush=True)
+            f"{k[:-9]} {row[k]:.2e}" for k in row if k.endswith("_max_dtau"))
+              + (f" | fp32 kernel bit-equal to the parent's {row['fp32_bit_equal_to_parent']}"
+                 if args.root else "") + f" ({card})", flush=True)
     print(json.dumps({"card": card, "reps": args.reps, "root": args.root, "attributes": attrs,
-                      "bf16_attributes": attrs16, "rows": rows}))
+                      "attributes_3x1024": attrs_wide, "bf16_attributes": attrs16,
+                      "rows": rows}))
 
 
 if __name__ == "__main__":

@@ -10,9 +10,15 @@ N=100 for the long-horizon route) for B problems, with the initial state
 moved by 1 cm-scale noise (lingram: gradient blocks far from zero; also
 the stress cases of tests/test_torch_lingram_structure.py) or the
 interior states by 5e-4 (riccati: a well-conditioned fp32 step, as in the
-steady RTI regime); for policy_pd and policy_pd_bf16 the shipped policy's
-folded weights and seeded normal inputs; for the node solves the random
-blocks of scripts/proto_sublane_riccati.py (Quu = G G^T + 3 I).
+steady RTI regime); for dynjac also the seeded states of
+tests/test_torch_dyncore_legs.py at M = 1, 25, 12,800, with the structural
+zeros of J held exact; for policy_pd and policy_pd_bf16 the shipped
+policy's folded weights (and seeded nets up to 3 x 1024) and seeded normal
+inputs, kernel 8's shipped-net output held bit for bit to
+tests/data/go2_trot_policy_pd_kernel_golden.npz; for the node solves the
+random blocks of scripts/proto_sublane_riccati.py (Quu = G G^T + 3 I).
+Without a card every test here skips: ~3.5 s of collection and no worker
+time, the kernel 7 and 3 x 1024 cases included.
 """
 import dataclasses
 import os
@@ -24,7 +30,7 @@ import torch
 from iterative_learning_nmpc_tpu_torch import flagship as F
 from iterative_learning_nmpc_tpu_torch.interop import random_policy_payload
 from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore, dyncore_plain
-from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain
+from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain, structural_zeros
 from iterative_learning_nmpc_tpu_torch.ops.lingram import (
     ROW_GROUPS, gate_failures, gram_gate, lingram, lingram_plain)
 from iterative_learning_nmpc_tpu_torch.ops import probes
@@ -36,6 +42,7 @@ from iterative_learning_nmpc_tpu_torch.ops.riccati import (
     riccati_sweep, riccati_sweep_plain, riccati_sweep_terminal,
     riccati_sweep_terminal_plain, terminal_gram)
 
+from test_torch_dyncore_legs import seeded_inputs
 from test_torch_lingram_structure import go2_solver, stress_case
 from test_torch_riccati_stage import BACKWARD_GATE, H_STEP, backward_error, near_floor_case
 
@@ -43,6 +50,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "data", "go2_trot_n25_golden.npz")
 GOLDEN_N100 = os.path.join(ROOT, "tests", "data", "go2_trot_n100_golden.npz")
 ARTIFACT = os.path.join(ROOT, "assets", "policy_go2_trot_ondevice_dagger.pkl")
+GOLDEN_PD = os.path.join(ROOT, "tests", "data", "go2_trot_policy_pd_kernel_golden.npz")
 B = 3
 
 
@@ -219,6 +227,39 @@ def test_dynjac_kernel_matches_plain(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 25, 12800])
+def test_dynjac_kernel_shapes_and_structural_zeros(card, M):
+    """Kernel 7 (a (direction, leg) pair per lane) at one evaluation, the
+    controller's M=25 and chip_smoke.py's stress shape, on seeded states of
+    a trot's scale: within tests/test_dynjac_kernel.py's bounds, and every
+    structural zero of J stored as an exact zero (as the twin has it)."""
+    dev = torch.device("cuda")
+    args = [torch.as_tensor(a, device=dev) for a in seeded_inputs(M, M)]
+    spec = card[0].spec
+    n0 = dynjac.launches
+    (pk, Jk), (pp, Jp) = dynjac(spec, *args), dynjac_plain(spec, *args)
+    torch.cuda.synchronize()
+    assert dynjac.launches == n0 + 1
+    assert pk.shape == (M, 42) and Jk.shape == (M, 42, 54)
+    assert float((pk - pp).abs().max()) <= 1e-5 * max(1.0, float(pp.abs().max()))
+    assert float((Jk - Jp).abs().max()) <= 3e-5 * float(Jp.abs().max())
+    Z = structural_zeros().to(dev)
+    assert bool((Jk[:, Z] == 0).all()) and bool((Jp[:, Z] == 0).all())
+
+
+@pytest.mark.cuda
+def test_dynjac_kernel_attributes(card):
+    """No local memory and no spills (every per-thread index static)."""
+    from iterative_learning_nmpc_tpu_torch.ops import _build
+    from iterative_learning_nmpc_tpu_torch.ops.dynjac import kernel_attributes
+
+    report = _build.ptxas_report(_build.CSRC / "dynjac.cu")
+    assert {k: v[1:] for k, v in report.items()} == {"dynjac_kernel": (0, 0, 0)}, report
+    regs, local, blocks = kernel_attributes()["dynjac_kernel"]
+    assert local == 0 and blocks >= 1, (regs, local, blocks)
+
+
+@pytest.mark.cuda
 def test_entry_points_default_to_the_card(card):
     """Called without a device, the entry points put their tensors on the
     CUDA card."""
@@ -256,8 +297,9 @@ def _random_layers(h, seed):
 
 def _policy_layers(width, dev):
     """The shipped 47 -> 512x3 -> 12 policy, or a seeded one at hidden width
-    256 (the JAX network's default) or 132 (a multiple of 4 but not of 8 or
-    32: ragged column slices, the last one empty)."""
+    256 (the JAX network's default), 132 (a multiple of 4 but not of 8 or
+    32: ragged column slices, the last one empty) or 1024 (the wide layout:
+    16 rows a cluster, 128-column slices)."""
     layers = _shipped_layers() if width == 512 else _random_layers(width, width)
     return [(torch.as_tensor(W, device=dev), torch.as_tensor(b, device=dev)) for W, b in layers]
 
@@ -270,10 +312,11 @@ PD_BATCHES = [1, 31, 32, 33, 256, 257, 480, 481, 1000, 4096]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [512, 256, 132])
+@pytest.mark.parametrize("width", [512, 256, 132, 1024])
 @pytest.mark.parametrize("B", PD_BATCHES)
 def test_policy_pd_kernel_matches_plain(card, B, width):
-    """Kernel 8 in one launch, at every edge of its cluster layout."""
+    """Kernel 8 in one launch, at every edge of its cluster layouts (32
+    rows a cluster up to 512 hidden units, 16 at 1024)."""
     dev = torch.device("cuda")
     layers = _policy_layers(width, dev)
     gen = torch.Generator().manual_seed(B)
@@ -287,6 +330,43 @@ def test_policy_pd_kernel_matches_plain(card, B, width):
     # bounds, tau scaled by kp
     torch.testing.assert_close(ak, ap, rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(tk, tp, rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [33, 256])
+def test_policy_pd_kernel_bit_equal_to_golden(card, B):
+    """The shipped net's layout (hidden widths <= 512) gives, bit for bit,
+    the output kernel 8 gave before it took wider nets
+    (tests/data/go2_trot_policy_pd_kernel_golden.npz, recorded on the card by
+    scripts/make_torch_policy_pd_golden.py from that kernel)."""
+    dev = torch.device("cuda")
+    g = np.load(GOLDEN_PD)
+    x, qj, vj = (torch.as_tensor(g[f"{k}_{B}"], device=dev) for k in ("x", "qj", "vj"))
+    ak, tk = policy_pd(_policy_layers(512, dev), 20.0, 1.5, x, qj, vj)
+    assert torch.equal(ak.cpu(), torch.as_tensor(g[f"act_{B}"]))
+    assert torch.equal(tk.cpu(), torch.as_tensor(g[f"tau_{B}"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [15, 17, 4096])
+def test_policy_pd_factory_serves_1024_wide_nets(card, B):
+    """Kernel 8's wide layout (hidden widths 513..1024: 16 rows a cluster,
+    128-column slices, 64-row chunks) at a 3 x 1024 net through the fp32
+    factory, one launch, against the addmm chain in float64 within kernel
+    8's bounds."""
+    dev = torch.device("cuda")
+    layers = _policy_layers(1024, dev)
+    fn = make_fused_policy_pd(layers, 20.0, 1.5, device=dev)
+    gen = torch.Generator().manual_seed(B)
+    x, qj, vj = (torch.randn(B, n, generator=gen).to(dev) for n in (47, 12, 12))
+    n0 = policy_pd.launches
+    ak, tk = fn(x, qj, vj)
+    torch.cuda.synchronize()
+    assert policy_pd.launches == n0 + 1
+    ap, tp = policy_pd_plain([(W.double(), b.double()) for W, b in layers], 20.0, 1.5,
+                             x.double(), qj.double(), vj.double())
+    torch.testing.assert_close(ak.double(), ap, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(tk.double(), tp, rtol=2e-4, atol=1e-3)
 
 
 @pytest.mark.cuda
@@ -339,10 +419,11 @@ def test_policy_pd_kernel_writes_no_row_past_B(card, B):
 @pytest.mark.cuda
 def test_policy_pd_kernel_refuses_what_it_cannot_take(card):
     """The narrower contract raises ValueError, never a fallback: hidden
-    widths past 8 slices of 64, n_out past 64, and an input so wide that the
-    block's shared memory passes the card's limit."""
+    widths past 1024 (8 slices of 128), n_out past 64, and an input so wide
+    that the block's shared memory passes the card's limit."""
     dev = torch.device("cuda")
-    for dims in ((47, 516, 512, 512, 12), (47, 512, 512, 512, 68), (600, 512, 512, 512, 12)):
+    for dims in ((47, 1028, 512, 512, 12), (47, 512, 512, 1028, 12), (47, 512, 512, 512, 68),
+                 (600, 512, 512, 512, 12), (1100, 1024, 1024, 1024, 12)):
         layers = [(torch.zeros(dims[i], dims[i + 1], device=dev), torch.zeros(dims[i + 1],
                                                                                device=dev))
                   for i in range(4)]
@@ -354,17 +435,20 @@ def test_policy_pd_kernel_refuses_what_it_cannot_take(card):
 
 @pytest.mark.cuda
 def test_policy_pd_kernel_attributes(card):
-    """No spills (nvcc -Xptxas -v), and the layout the design states at the
-    shipped widths: one block a SM (more than half the opt-in shared memory
-    of an H100) and at least 15 clusters of 8 blocks resident at once."""
+    """No spills in either layout's instance (nvcc -Xptxas -v), and the
+    layouts the design states: at the shipped widths 32 rows a cluster, at
+    3 x 1024 16; one block a SM (more than half the opt-in shared memory of
+    an H100) and at least 15 clusters of 8 blocks resident at once."""
     from iterative_learning_nmpc_tpu_torch.ops import _build
     from iterative_learning_nmpc_tpu_torch.ops.policy_pd import kernel_attributes
 
     report = _build.ptxas_report(_build.CSRC / "policy_pd.cu")
-    assert {k: v[2:] for k, v in report.items()} == {"policy_pd_kernel": (0, 0)}
-    at = kernel_attributes((47, 512, 512, 512, 12), torch.device("cuda"))
-    assert at["local_bytes"] == 0 and at["dynamic_smem"] > 232448 // 2
-    assert at["max_active_clusters"] >= 15
+    assert {k: v[2:] for k, v in report.items()} == {
+        "policy_pd_kernel<32,64,128>": (0, 0), "policy_pd_kernel<16,128,64>": (0, 0)}, report
+    for h, rows in ((512, 32), (1024, 16)):
+        at = kernel_attributes((47, h, h, h, 12), torch.device("cuda"))
+        assert at["local_bytes"] == 0 and at["dynamic_smem"] > 232448 // 2, at
+        assert at["max_active_clusters"] >= 15 and at["rows_per_cluster"] == rows, at
 
 
 @pytest.mark.cuda
@@ -385,13 +469,13 @@ def test_policy_rollout_defaults_to_the_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_hidden, width", [(4, 256), (3, 1024)])
+@pytest.mark.parametrize("n_hidden, width", [(4, 256)])
 def test_served_policy_takes_the_dense_route_for_other_shapes(card, n_hidden, width):
     """A net kernel 8 does not take (4 hidden layers of 256, the JAX
-    network's class default; 3 of 1024), loaded as a payload and served on
-    the card: route "dense", one policy_pd_dense call and no kernel 8
-    launch a step, and the addmm chain's result in float64 to kernel 8's
-    bounds."""
+    network's class default), loaded as a payload and served on the card:
+    route "dense", one policy_pd_dense call and no kernel 8 launch a step,
+    and the addmm chain's result in float64 to kernel 8's bounds. (3 x 1024
+    took this route until kernel 8 took hidden widths up to 1024.)"""
     from iterative_learning_nmpc_tpu_torch.interop import policy_from_numpy
     from iterative_learning_nmpc_tpu_torch.learning.network import ServedPolicy
     from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd_dense
@@ -406,6 +490,31 @@ def test_served_policy_takes_the_dense_route_for_other_shapes(card, n_hidden, wi
     act, tau = served(s44, goal, qj, vj, 20.0, 1.5)
     torch.cuda.synchronize()
     assert (policy_pd.launches, policy_pd_dense.calls) == (n_kernel, n_dense + 1)
+    ap, tp = policy_pd_plain([(W.double(), b.double()) for W, b in served.layers], 20.0, 1.5,
+                             served.normalize(s44, goal).double(), qj.double(), vj.double())
+    torch.testing.assert_close(act.double(), ap, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(tau.double(), tp, rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_served_policy_takes_the_kernel_for_1024_wide_nets(card):
+    """A 3 x 1024 payload served on the card: route "kernel", one kernel 8
+    launch a step and no dense call, within kernel 8's bounds of the addmm
+    chain in float64."""
+    from iterative_learning_nmpc_tpu_torch.interop import policy_from_numpy
+    from iterative_learning_nmpc_tpu_torch.learning.network import ServedPolicy
+    from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd_dense
+
+    dev = torch.device("cuda")
+    served = ServedPolicy(*policy_from_numpy(random_policy_payload(3, 1024, 1024), device=dev),
+                          device=dev)
+    assert served.route == "kernel"
+    gen = torch.Generator().manual_seed(1024)
+    s44, goal, qj, vj = (torch.randn(256, n, generator=gen).to(dev) for n in (44, 3, 12, 12))
+    n_kernel, n_dense = policy_pd.launches, policy_pd_dense.calls
+    act, tau = served(s44, goal, qj, vj, 20.0, 1.5)
+    torch.cuda.synchronize()
+    assert (policy_pd.launches, policy_pd_dense.calls) == (n_kernel + 1, n_dense)
     ap, tp = policy_pd_plain([(W.double(), b.double()) for W, b in served.layers], 20.0, 1.5,
                              served.normalize(s44, goal).double(), qj.double(), vj.double())
     torch.testing.assert_close(act.double(), ap, rtol=2e-4, atol=2e-5)

@@ -11,10 +11,14 @@ in fp32, one tile of B rows, as ``tests/test_policy_kernel.py`` runs it; the
 port's side is its factory's CPU path (``policy_pd`` on CPU tensors takes
 the plain twin and launches nothing). Tolerance: the JAX package's own
 kernel test bounds, fp32 sums over K = 512 in another order, tau scaled by
-kp.
+kp. Also a 3 x 1024 net (kernel 8's wide layout on the card) at B=17, one
+interpret-mode call, within the same bounds.
 
-xdist worker time: ~10 s on an 8-CPU Intel Xeon host (nine interpret-mode
-calls of the JAX policy kernel, each under a second).
+xdist worker time: ~10 s on an 8-CPU Intel Xeon host (ten interpret-mode
+calls of the JAX policy kernel, each under a second; the 1024-wide one,
+0.39 s). The port's test files summed 648.1 s of worker time before that
+case and 433.7 s after (--durations=0, -n 6, one 8-CPU host under other
+load: the difference is the load's).
 """
 import os
 import pickle
@@ -70,3 +74,10 @@ def test_fp32_factory_matches_jax_fp32_kernel(B, width):
     assert tpp.policy_pd.launches == n0
     np.testing.assert_allclose(a_t.numpy(), a_j, rtol=2e-4, atol=2e-5)
     np.testing.assert_allclose(t_t.numpy(), t_j, rtol=2e-4, atol=1e-3)
+
+
+def test_fp32_factory_matches_jax_fp32_kernel_at_1024():
+    """A seeded 47 -> 1024 x3 -> 12 policy, which kernel 8 serves on the card
+    in its wide layout (16 rows a cluster, 128-column slices): the port's
+    factory against one interpret-mode call of the JAX fp32 kernel."""
+    test_fp32_factory_matches_jax_fp32_kernel(17, 1024)

@@ -1,17 +1,21 @@
 """The policy serving routes of the port (``learning/network.ServedPolicy``,
 ``ops/policy_pd.kernel_takes`` and ``policy_pd_dense``) against the JAX
-package, for nets that kernel 8 does not take.
+package, for nets other than the shipped one.
 
 The JAX package serves any ``net_config`` in its rollouts (the Flax module
 under ``vmap``); the port serves kernel 8's widths by the kernel and every
 other net by the fp32 addmm chain. Two payloads made with the JAX
 ``GoalConditionedPolicyNet`` from a seed: 4 hidden layers of 256 (the
-class default, no batch norm) and 3 of 1024 (batch norm with random
-statistics, so the folding is exercised). Each is loaded by
+class default, no batch norm; route "dense") and 3 of 1024 (batch norm
+with random statistics, so the folding is exercised; route "kernel" since
+kernel 8 takes hidden widths up to 1024). Each is loaded by
 ``interop.policy_from_numpy``, served by ``ServedPolicy(device="cpu")``
 and held to the JAX package's ``make_policy_apply`` under ``vmap``, run
 eagerly (no ``jax.jit``, no Pallas). About 13 s of worker time on the
-CPU, 8 s of it the two payloads' JAX init and first eager calls. The
+CPU, 8 s of it the two payloads' JAX init and first eager calls; the
+1028-wide route cases add under 0.01 s (the port's test files summed
+648.1 s of worker time before them and 433.7 s after, --durations=0, -n
+6, on one 8-CPU host under other load). The
 card's routes are tested in tests/test_torch_cuda_kernels.py, which
 imports no JAX.
 """
@@ -30,8 +34,8 @@ from iterative_learning_nmpc_tpu_torch.ops.policy_pd import (
 torch.set_num_threads(1)
 KP, KD = 20.0, 1.5
 B = 64
-# hidden layers, width, batch norm
-NETS = {"4x256": (4, 256, False), "3x1024": (3, 1024, True)}
+# hidden layers, width, batch norm, route
+NETS = {"4x256": (4, 256, False, "dense"), "3x1024": (3, 1024, True, "kernel")}
 
 
 def make_payload(name, seed):
@@ -39,7 +43,7 @@ def make_payload(name, seed):
     GoalConditionedPolicyNet, its weights from init_network's Kaiming draw
     and its BatchNorm parameters, running statistics and input statistics
     from numpy."""
-    n_hidden, width, bn = NETS[name]
+    n_hidden, width, bn, _ = NETS[name]
     cfg = dict(input_size=47, output_size=12, num_hidden_layer=n_hidden, hidden_dim=width,
                batch_norm=bn, dropout_rate=0.0)
     _, variables = jnetwork.init_network(jax.random.PRNGKey(seed), **cfg)
@@ -86,15 +90,16 @@ def served_case(request, tmp_path_factory):
 
 
 def test_served_policy_matches_jax_apply(served_case):
-    """Loaded by policy_from_numpy and served on the CPU (route "dense"):
+    """Loaded by policy_from_numpy and served on the CPU, on its route by
+    shape (the 3 x 1024 net on "kernel", whose CPU path is the plain twin):
     the targets within 5e-5 of the Flax apply, as
     tests/test_torch_policy.py::test_served_policy_matches_jax_apply holds
     the shipped payload, and the torque kp times that."""
     name, payload, a_ref = served_case
     net, norm = interop.policy_from_numpy(payload, device="cpu")
     served = ServedPolicy(net, norm, device="cpu")
-    assert served.route == "dense"
-    n_hidden, width, _ = NETS[name]
+    n_hidden, width, _, route = NETS[name]
+    assert served.route == route
     assert [tuple(W.shape) for W, _ in served.layers] == (
         [(47, width)] + [(width, width)] * (n_hidden - 1) + [(width, 12)])
     s44, goal, qj, vj = (torch.as_tensor(a) for a in _inputs(1))
@@ -122,7 +127,9 @@ def test_dense_route_equals_plain_twin(served_case):
     ((47, 512, 512, 512, 12), True),            # the shipped policy
     ((47, 256, 256, 256, 12), True),
     ((47, 256, 256, 256, 256, 12), False),      # 5 layers (the JAX class default)
-    ((47, 1024, 1024, 1024, 12), False),        # hidden 1024
+    ((47, 1024, 1024, 1024, 12), True),         # hidden 1024: the wide layout
+    ((47, 1028, 1028, 1028, 12), False),        # hidden past 1024
+    ((47, 512, 1028, 512, 12), False),
     ((47, 512, 512, 512, 65), False),           # n_out 65
     ((47, 250, 250, 250, 12), False),           # a width not a multiple of 4
 ])
