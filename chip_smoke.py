@@ -9,7 +9,8 @@ warm-started RTI solve of the Go2 trot NMPC (N=25 nodes, 36-dim state,
 30-dim input), the closed-loop controller (``LocomotionMPC``, one problem
 per replan) driving the device plant, and the learned-policy serving path
 (the shipped 47 -> 512x3 -> 12 policy served to 256 environments on the
-device plant). Phases, one line each:
+device plant), and the training side (behaviour cloning on the datagen's
+rows, and the on-device SafeDAgger loop). Phases, one line each:
 
   1. the card's name and power limit (nvidia-smi),
   2. build the kernels from ``iterative_learning_nmpc_tpu_torch/csrc``,
@@ -107,7 +108,27 @@ device plant). Phases, one line each:
      block running the production node stage of csrc/riccati.cuh, a warp,
      a thread per node) on the reference probe's blocks at B=1024, N=25,
      counters as above: each within 1e-5 of the twin and of the block
-     mapping, timed there and at B=256.
+     mapping, timed there and at B=256,
+ 20. behaviour cloning at full width (learning/train.py): the valid rows of
+     phase 12's datagen (goal = each env's v_des) into a Database,
+     BehavioralCloning with the TrainConfig defaults (47 -> 512x3 -> 12,
+     BatchNorm, batch 1024, lr 2e-3) for 3 epochs: ms a training step
+     (CUDA events), rows/s, each epoch's losses and wall; the losses finite
+     and falling; one epoch from the trained payload on 8,192 of the rows on
+     the card and on the CPU, their per-step losses and parameters within
+     the stated tolerance, and the same gate failing when one batch index
+     of the CPU run is changed; the payload reloaded, served on route
+     "kernel" and kernel 8 on phase 10's observations within its bound of
+     the net's eval-mode forward,
+ 21. the on-device SafeDAgger loop (learning/dagger.py) at full width: a
+     seeded untrained 3 x 512 BatchNorm policy, 256 envs, 0.4 s (10
+     intervals), delay 20, MPC latched >= 60, one goal (0.3, 0, 0), 2
+     iterations of (collect -> train: 3 epochs, batch 256, lr 1e-3), the
+     counters set to 0 before each collect and read after it (kernels 1-3
+     launched, kernel 8 once a control step, the dense route never): the
+     JAX package's slow-test gates (two data steps, expert ratio > 0.3 at
+     the first, the aggregate growing, the final payload new, loading and
+     served on route "kernel"); each collect's and training's wall.
 
 It then prints one JSON line with the kernels' results (each with its
 bound: the larger of its operations over the card's fp32 rate, bf16
@@ -162,6 +183,23 @@ BF16_ULP = 2.0 ** -8
 # factory pads them to 144, 112, 272) and the bf16 kernel's widest, 3 x 1024
 BF16_WIDTHS = ((132, 100, 260), (1024, 1024, 1024))
 NODE_B, NODE_N, NODE_B_SWEEP, NODE_REL = 1024, 25, 256, 1e-5
+# the training side (phases 20-21): BC epochs on the datagen's rows, the
+# rows of the card-against-CPU epoch, and the SafeDAgger loop's run
+BC_EPOCHS, BC_CMP_ROWS, BC_CMP_SEEDS = 3, 8192, 4
+DAGGER_SIM_S, DAGGER_ITERS, DAGGER_EPOCHS, DAGGER_BATCH, DAGGER_LR = 0.4, 2, 3, 256, 1e-3
+# card against CPU after one epoch (7 steps), with the split and batches of
+# each of BC_CMP_SEEDS seeds: per-step losses (fp32 sums in another order)
+# and parameters (an L1 kink, an output within rounding of its target,
+# flips one gradient sign and Adam carries it), except the noisy ones
+# (``learning.train.trained_gaps``: the Dense biases feeding a BatchNorm,
+# whose batch mean removes their gradient, the running means that follow
+# them, and first-layer rows of constant input columns), held to ~10x the
+# largest reading. Measured on an H100 80GB HBM3 at 700 W, seeds 0-3: losses
+# 1.1e-7 to 4.2e-7, parameters 3.1e-5 to 1.1e-4, noisy 2.8e-4 to 4.4e-4;
+# seed 0 with one batch index changed: 3.0e-2, 4.3e-1 and 5.4e-2; with the
+# running means at momentum 0.99 (Flax's is 0.9): noisy 1.6e-1, the rest
+# as without the fault
+BC_LOSS_RTOL, BC_PARAM_ATOL, BC_NOISY_ATOL = 1e-4, 1e-3, 4.5e-3
 
 
 def fail(msg: str) -> None:
@@ -272,17 +310,12 @@ def bound(plain_fn, args, out):
 
 
 def standing_state(spec):
-    """The flagship's standing pose: q_home with the feet on the ground."""
+    """The flagship's standing pose: (q (18,) float64, v = 0)."""
     import numpy as np
-    import torch
 
-    from iterative_learning_nmpc_tpu_torch.models import dynamics as dyn
+    from iterative_learning_nmpc_tpu_torch.models.dynamics import settled_state
 
-    cpu = spec.to("cpu")
-    q0 = cpu.q_home.numpy().astype(np.float32).copy()
-    p0 = dyn.foot_positions(cpu, torch.as_tensor(q0)).numpy()
-    q0[2] += -p0[0, 2] + float(cpu.foot_radius)
-    return q0.astype(np.float64), np.zeros(18)
+    return settled_state(spec)[:18].astype(np.float64), np.zeros(18)
 
 
 def noisy_starts(q0, n, rng):
@@ -318,8 +351,9 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
     mode; ``record`` adds policy_pd's line to the kernels' results (its
     launches are the policy rollout's). Returns phase 10's policy_pd
     arguments by batch (the datagen's observations), which phase 17 serves
-    again, and phase 10's times by batch (kernel and fp32 addmm chain, eager
-    and device)."""
+    again, phase 10's times by batch (kernel and fp32 addmm chain, eager
+    and device), and phase 12's rows and commands, which phase 20 trains
+    on."""
     import numpy as np
     import torch
 
@@ -426,6 +460,8 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
         fail("datagen rows outside the gates of tests/test_ondevice.py")
     if min(dg_launches[k] for k in ("lingram", "riccati_rollout", "dyncore")) <= 0:
         fail(f"datagen did not launch the batch solver's kernels: {dg_launches}")
+
+    datagen_rows = (rows, vd)
 
     # ---- 10. policy_pd against its twin, on the datagen's observations ----
     layers = served.layers
@@ -576,7 +612,7 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
     if not (same and errs["q1"] <= 5e-3 and errs["v1"] <= 0.1 and errs["a1"] <= 5e-2
             and errs["q"] <= 5e-2 and errs["a"] <= 0.15):
         fail("SafeDAgger B=2 disagrees with the JAX golden")
-    return {nb: r[6] for nb, r in pp_results.items()}, times
+    return {nb: r[6] for nb, r in pp_results.items()}, times, datagen_rows
 
 
 def b1_route_ms(solver, X, U, p, reps: int = 20) -> dict:
@@ -983,11 +1019,22 @@ def policy_bf16_phase(dev, card, pp_args, fp32_times, kernels, record) -> None:
         attrs[widths], at_txt = attrs_text(B_ENV, (47, *padded))
         print(f"[policy_pd_bf16] widths 47 -> {' -> '.join(map(str, widths))} -> 12, "
               f"B={B_ENV}: {txt}; attributes: {at_txt} ({card})", flush=True)
-    err, ok, ms, plain_ms, _, _, _, (x, qj, vj), out = rows[B_ENV]
     (W1, _), (W2, _), (W3, _), (W4, b4) = bl
-    B, n_in, h1, h2, h3, n_out = x.shape[0], *W1.shape, W2.shape[1], W3.shape[1], b4.shape[0]
-    work = (2.0 * B * n_in * h1, 2.0 * B * (h1 * h2 + h2 * h3 + h3 * n_out),
-            distinct_bytes([x, qj, vj, *(t for l in bl for t in l), *out]))
+    n_in, h1, h2, h3, n_out = *W1.shape, W2.shape[1], W3.shape[1], b4.shape[0]
+
+    def work_at(nb):
+        """(fp32 flops, bf16 tensor-core flops, bytes) of the shipped net at
+        batch nb: layer 1 in fp32, layers 2-4 on the tensor cores."""
+        B, (x, qj, vj), out = nb, rows[nb][7], rows[nb][8]
+        return (2.0 * B * n_in * h1, 2.0 * B * (h1 * h2 + h2 * h3 + h3 * n_out),
+                distinct_bytes([x, qj, vj, *(t for l in bl for t in l), *out]))
+
+    bounds = {nb: bound_of(*work_at(nb)) for nb in pp_args}
+    print("[policy_pd_bf16] bound (layer 1 at 67 TFLOP/s fp32, layers 2-4 at 989 TFLOP/s bf16, "
+          "the bytes at 3.35 TB/s): " + ", ".join(f"B={nb} {b:.6f} ms by {by}"
+                                                  for nb, (b, by) in bounds.items()), flush=True)
+    err, ok, ms, plain_ms, _, _, _, (x, qj, vj), out = rows[B_ENV]
+    work = work_at(B_ENV)
     shapes = [f"B={nb}" for nb in pp_args] + [f"widths {w} at B={B_ENV}" for w in nets]
     record("policy_pd_bf16", "iterative_learning_nmpc_tpu_torch/csrc/policy_pd_bf16.cu",
            "iterative_learning_nmpc_tpu/ops/policy_kernel.py:65", max(r[0] for r in rows.values()),
@@ -998,6 +1045,7 @@ def policy_bf16_phase(dev, card, pp_args, fp32_times, kernels, record) -> None:
            extra={**{key: {nb: r[i] for nb, r in rows.items() if len(r) > 2} for i, key in
                      ((2, "ms_by_batch"), (4, "library_chain_ms"), (5, "device_ms_by_batch"),
                       (6, "device_chain_ms"))},
+                  "bound_ms_by_batch": {nb: b for nb, (b, _) in bounds.items()},
                   "kernel_attributes": {str(k): v for k, v in attrs.items()}})
 
 
@@ -1103,6 +1151,261 @@ def node_solve_phase(dev, card, kernels, record) -> None:
                times[m], plain_ms, None, None, out, n_launch=n_launch[m], work=work)
         if n_launch[m] != 1:
             fail(f"node_solve_{m} launched {n_launch[m]} times for one call")
+
+
+def bc_gate(a, b, const_cols):
+    """Two one-epoch runs from the same payload, each (per-step losses,
+    Flax-layout variables): (within the gate, the worst relative loss gap,
+    the worst parameter gap, the worst gap of the noisy ones, as
+    ``learning.train.trained_gaps`` splits them)."""
+    import numpy as np
+
+    from iterative_learning_nmpc_tpu_torch.learning.train import trained_gaps
+
+    (la, va), (lb, vb) = a, b
+    loss_gap = float(np.max(np.abs(la / lb - 1.0)))
+    worst, worst_noisy = trained_gaps(va, vb, const_cols)
+    ok = loss_gap <= BC_LOSS_RTOL and worst <= BC_PARAM_ATOL and worst_noisy <= BC_NOISY_ATOL
+    return ok, loss_gap, worst, worst_noisy
+
+
+def training_phases(dev, card, spec_d, datagen_rows, kernels) -> None:
+    """Phases 20-21: behaviour cloning on phase 12's rows at full width
+    (timed, held to the same epoch on the CPU, the trained payload served by
+    kernel 8), then the on-device SafeDAgger loop at B_ENV envs with the
+    counters set to 0 before each collect and read after it."""
+    import copy
+    import dataclasses
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch.interop import random_policy_payload
+    from iterative_learning_nmpc_tpu_torch.learning.dagger import (
+        OnDeviceSafeDagger, SafeDaggerConfig)
+    from iterative_learning_nmpc_tpu_torch.learning.database import Database
+    from iterative_learning_nmpc_tpu_torch.learning.network import (
+        FlaxBatchNorm, ServedPolicy, load_policy, save_policy)
+    from iterative_learning_nmpc_tpu_torch.learning.train import BehavioralCloning, TrainConfig
+    from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd, policy_pd_dense
+
+    rows, vd = datagen_rows
+    B, T = rows.valid.shape
+    keep = (rows.valid > 0.5).reshape(-1)
+    keep_np = keep.cpu().numpy()
+    db = Database(limit=int(keep_np.sum()), goal_type="vc")
+    db.append(rows.state44.reshape(-1, 44)[keep].cpu().numpy(),
+              rows.action.reshape(-1, 12)[keep].cpu().numpy(),
+              vc_goals=np.repeat(vd, T, axis=0)[keep_np],
+              traj_id=np.repeat(np.arange(B), T)[keep_np],
+              times=np.tile(np.arange(T) * 1e-3, B)[keep_np])
+    # phase 10's observations at B_ENV: each env's last datagen row
+    s44, goal = rows.state44[:, -1].contiguous(), torch.as_tensor(vd, device=dev)
+    qj, vj = rows.q[:, -1, 6:].contiguous(), rows.v[:, -1, 6:].contiguous()
+
+    def served_check(path, name):
+        """The payload reloaded and served: (route, kernel 8 launches,
+        max_abs_err to the net's float64 eval-mode forward, within kernel
+        8's bound)."""
+        net, norm = load_policy(path, device=dev)
+        served = ServedPolicy(net, norm, device=dev)
+        n0 = (policy_pd.launches, policy_pd_dense.calls)
+        act, tau = served(s44, goal, qj, vj, POLICY_KP, POLICY_KD)
+        torch.cuda.synchronize()
+        n1 = (policy_pd.launches - n0[0], policy_pd_dense.calls - n0[1])
+        with torch.no_grad():
+            ref = copy.deepcopy(net).double()(served.normalize(s44, goal).double())
+        tau_ref = POLICY_KP * (ref - qj.double()) - POLICY_KD * vj.double()
+        act, tau = act.double(), tau.double()
+        err = max(float((act - ref).abs().max()), float((tau - tau_ref).abs().max()))
+        ok = bool(((act - ref).abs() <= 2e-5 + 2e-4 * ref.abs()).all()
+                  and ((tau - tau_ref).abs() <= 1e-3 + 2e-4 * tau_ref.abs()).all())
+        print(f"[{name} served] {os.path.basename(path)}: route {served.route}, kernel 8 "
+              f"launches {n1[0]}, dense calls {n1[1]}, B={B}: max_abs_err to the net's float64 "
+              f"eval-mode forward {err:.3e} ({'within' if ok else 'OUTSIDE'} |d act| <= 2e-5 + "
+              f"2e-4 |act|, |d tau| <= 1e-3 + 2e-4 |tau|; {card})", flush=True)
+        if served.route != "kernel" or n1 != (1, 0) or not ok:
+            fail(f"{name}: the trained payload was not served by kernel 8 within its bound "
+                 f"(route {served.route}, calls {n1})")
+        return net
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 20. behaviour cloning at full width ----
+        t20 = time.perf_counter()
+        cfg = TrainConfig(n_epochs=BC_EPOCHS, save_dir=os.path.join(tmp, "bc"), run_name="smoke")
+        bc = BehavioralCloning(cfg, device=dev)
+        final = bc.run(db)
+        torch.cuda.synchronize()
+        walls = np.diff([0.0] + [m["wall"] for m in bc.metrics])
+        n_steps = len(bc.step_losses[0])
+        for m, w in zip(bc.metrics, walls):
+            print(f"[bc] {len(db)} rows (phase 12's valid rows), epoch {m['epoch']}: train loss "
+                  f"{m['train_loss']:.6f}, val loss {m['val_loss']:.6f}; {m['step_ms']:.4f} ms a "
+                  f"training step (CUDA events over {n_steps} steps of {cfg.batch_size} rows), "
+                  f"{cfg.batch_size / m['step_ms'] * 1e3:.1f} rows/s; epoch wall {w:.3f} s "
+                  f"({card})", flush=True)
+        losses = [m[k] for m in bc.metrics for k in ("train_loss", "val_loss")]
+        if not (np.isfinite(losses).all()
+                and bc.metrics[-1]["train_loss"] < bc.metrics[0]["train_loss"]):
+            fail(f"BC losses non-finite or not falling: {losses}")
+
+        # one epoch from the trained payload on the card and on the CPU
+        pick = np.arange(0, len(db), max(1, len(db) // BC_CMP_ROWS))[:BC_CMP_ROWS]
+        sub = Database(limit=len(pick), goal_type="vc")
+        sub.append(db.states_array()[pick], db.actions_array()[pick],
+                   vc_goals=db.goals_array()[pick])
+        X_sub, Y_sub = sub.training_arrays()
+        const_cols = np.flatnonzero(X_sub.std(axis=0) == 0.0)
+
+        class OneIndexChanged(BehavioralCloning):
+            """The first batch's first row swapped for the train row whose
+            action is furthest from it."""
+
+            def draw_batches(self, rng, train_idx, p_train, n_batches):
+                idx = super().draw_batches(rng, train_idx, p_train, n_batches)
+                i = idx[0, 0]
+                idx[0, 0] = train_idx[np.abs(Y_sub[train_idx] - Y_sub[i]).sum(axis=1).argmax()]
+                return idx
+
+        class StaleMeans(BehavioralCloning):
+            """The running means kept at momentum 0.99 (Flax's is 0.9): a
+            fault that only the noisy leaves carry."""
+
+            def run(self, *args, **kwargs):
+                forward = FlaxBatchNorm.forward
+
+                def stale(bn, x):
+                    mean = bn.running_mean.clone()
+                    out = forward(bn, x)
+                    if bn.training:
+                        with torch.no_grad():
+                            bn.running_mean.copy_(0.99 * mean + 0.01 * x.mean(0))
+                    return out
+
+                FlaxBatchNorm.forward = stale
+                try:
+                    return super().run(*args, **kwargs)
+                finally:
+                    FlaxBatchNorm.forward = forward
+
+        def one_epoch(name, cls, d, seed):
+            c = dataclasses.replace(cfg, n_epochs=1, seed=seed,
+                                    save_dir=os.path.join(tmp, f"{name}{seed}"), run_name="cmp")
+            b = cls(c, device=d)
+            t0 = time.perf_counter()
+            path = b.run(sub, warm_start_path=final)
+            wall = time.perf_counter() - t0
+            with open(path, "rb") as f:
+                return (b.step_losses[0].astype(np.float64), pickle.load(f)["variables"]), wall
+
+        readings = []
+        for seed in range(BC_CMP_SEEDS):
+            (on_card, w_card), (on_cpu, w_cpu) = (one_epoch(name, BehavioralCloning, d, seed)
+                                                  for name, d in (("cuda", dev), ("cpu", "cpu")))
+            ok, gap, worst, worst_noisy = bc_gate(on_card, on_cpu, const_cols)
+            readings.append((gap, worst, worst_noisy))
+            print(f"[bc card vs cpu] seed {seed}: one epoch of {len(on_card[0])} steps on "
+                  f"{len(sub)} rows ({w_card:.3f} s on the card, {w_cpu:.3f} s on the CPU): "
+                  f"per-step losses worst |l_card / l_cpu - 1| {gap:.3e} (<= {BC_LOSS_RTOL:.0e}), "
+                  f"parameters {worst:.3e} (<= {BC_PARAM_ATOL:.0e}), the noisy ones (pre-BatchNorm "
+                  f"biases, running means, constant inputs' rows {const_cols.tolist()}) "
+                  f"{worst_noisy:.3e} (<= {BC_NOISY_ATOL:.1e}): {'held' if ok else 'FAILED'} "
+                  f"({card})", flush=True)
+            if seed == 0:
+                control = on_card
+            if not ok:
+                fail(f"BC on the card disagrees with the port on the CPU (seed {seed})")
+        for name, cls in (("one batch index changed", OneIndexChanged),
+                          ("running means at momentum 0.99", StaleMeans)):
+            ok_c, gap_c, worst_c, noisy_c = bc_gate(control, one_epoch(name[:3], cls, "cpu", 0)[0],
+                                                    const_cols)
+            print(f"[bc card vs cpu] control, seed 0 with {name} on the CPU: losses {gap_c:.3e}, "
+                  f"parameters {worst_c:.3e}, noisy {noisy_c:.3e}: "
+                  f"{'held (the gate is blind)' if ok_c else 'fails, as it must'}", flush=True)
+            if ok_c:
+                fail(f"the BC gate does not see {name}")
+        print("[bc card vs cpu] largest over seeds: losses %.3e, parameters %.3e, noisy %.3e"
+              % tuple(np.max(readings, axis=0)), flush=True)
+        served_check(final, "bc")
+        wall20 = time.perf_counter() - t20
+
+        # ---- 21. the on-device SafeDAgger loop at full width ----
+        t21 = time.perf_counter()
+        payload = random_policy_payload(3, 512, SEED)
+        policy0 = save_policy(os.path.join(tmp, "policy0.pkl"), payload["variables"], None,
+                              payload["net_config"])
+        dcfg = SafeDaggerConfig(
+            record_dir=os.path.join(tmp, "dagger"), sim_time=DAGGER_SIM_S,
+            delay_steps=DELAY_STEPS, mpc_min_steps=MPC_MIN_STEPS, goals=((V_DES, 0.0, 0.0),),
+            n_iterations_per_goal=DAGGER_ITERS, n_epochs=DAGGER_EPOCHS,
+            batch_size=DAGGER_BATCH, learning_rate=DAGGER_LR, seed=SEED)
+        pipe = OnDeviceSafeDagger(spec_d, dcfg, policy0, batch=B_ENV, device=dev)
+        T_d = pipe.n_intervals * 40                 # 40 control steps an interval
+        steps = []
+        collect, run_training = pipe.collect, pipe.run_training
+
+        def timed_collect(policy_path, v_des, prev, tag):
+            for k in kernels:
+                k.launches = 0
+            policy_pd_dense.calls = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = collect(policy_path, v_des, prev, tag)
+            torch.cuda.synchronize()
+            steps.append(dict(tag=tag, collect_s=time.perf_counter() - t0, path=path,
+                              launches={k.__name__: k.launches for k in kernels},
+                              dense=policy_pd_dense.calls, train_s=None))
+            return path
+
+        def timed_training(path, tag):
+            t0 = time.perf_counter()
+            out = run_training(path, tag)
+            torch.cuda.synchronize()
+            steps[-1]["train_s"] = time.perf_counter() - t0
+            return out
+
+        pipe.collect, pipe.run_training = timed_collect, timed_training
+        final_d = pipe.run()
+        sizes = []
+        for st in steps:
+            d = Database(limit=dcfg.database_size)
+            d.load(st["path"])
+            sizes.append(len(d))
+        kept = np.diff([0] + sizes)
+        for i, (st, ratio) in enumerate(zip(steps, pipe.expert_ratio_history)):
+            ln = st["launches"]
+            print(f"[dagger] iteration {i} ({st['tag']}): B={B_ENV} x {pipe.n_intervals} "
+                  f"intervals ({T_d} control steps), expert ratio {ratio:.4f}, rows kept "
+                  f"{kept[i]} (aggregate {sizes[i]}); collect {st['collect_s']:.2f} s wall "
+                  f"({st['collect_s'] / T_d * 1e3:.3f} ms a control step), train "
+                  f"{st['train_s']:.2f} s wall ({dcfg.n_epochs} epochs, batch {dcfg.batch_size}); "
+                  f"launches dyncore {ln['dyncore']}, lingram {ln['lingram']}, riccati_rollout "
+                  f"{ln['riccati_rollout']}, policy_pd {ln['policy_pd']}, dense calls "
+                  f"{st['dense']} ({card})", flush=True)
+            if min(ln[k] for k in ("dyncore", "lingram", "riccati_rollout")) <= 0:
+                fail(f"DAgger collect {i} did not launch kernels 1-3: {ln}")
+            if ln["policy_pd"] != T_d or st["dense"] != 0:
+                fail(f"DAgger collect {i} launched kernel 8 {ln['policy_pd']} times (not once a "
+                     f"control step, {T_d}) or took the dense route ({st['dense']} calls)")
+        if len(pipe.expert_ratio_history) != DAGGER_ITERS or len(steps) != DAGGER_ITERS:
+            fail(f"DAgger ran {len(steps)} data steps, not {DAGGER_ITERS}")
+        if not pipe.expert_ratio_history[0] > 0.3:
+            fail(f"DAgger: the expert ratio {pipe.expert_ratio_history[0]:.4f} <= 0.3 under the "
+                 "untrained policy")
+        if not sizes[1] > sizes[0] > 0:
+            fail(f"DAgger: the aggregate did not grow: {sizes}")
+        with open(final_d, "rb") as f:
+            trained = pickle.load(f)["variables"]["params"]["Dense_0"]["kernel"]
+        if final_d == policy0 or np.array_equal(
+                trained, np.asarray(payload["variables"]["params"]["Dense_0"]["kernel"],
+                                    np.float32)):
+            fail("DAgger: the final payload is the initial one")
+        served_check(final_d, "dagger")
+        wall21 = time.perf_counter() - t21
+    print(f"[training phases] phase 20 (BC) {wall20:.1f} s, phase 21 (SafeDAgger) "
+          f"{wall21:.1f} s wall ({card})", flush=True)
 
 
 def main() -> None:
@@ -1497,7 +1800,8 @@ def main() -> None:
         fail(f"first plan rel|dU| {du:.2e} > {REL_GATE}")
 
     # ---- 10-13. the learned-policy serving path ----
-    pp_args, fp32_times = policy_phases(dev, card, spec_d, q0, kernels, launches, record)
+    pp_args, fp32_times, datagen_rows = policy_phases(dev, card, spec_d, q0, kernels,
+                                                      launches, record)
 
     # ---- 14-16. the Riccati routes ----
     n100 = riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launches,
@@ -1507,6 +1811,8 @@ def main() -> None:
     policy_bf16_phase(dev, card, pp_args, fp32_times, kernels, record)
     tf, bw = ceiling_phase(dev, card, kernels, record)
     node_solve_phase(dev, card, kernels, record)
+    # ---- 20-21. the training side ----
+    training_phases(dev, card, spec_d, datagen_rows, kernels)
     for r in results:
         r["bound_measured_ms"] = bound_of(*counts[r["name"]], peak_flops=tf * 1e12,
                                           peak_bytes=bw * 1e9)[0]

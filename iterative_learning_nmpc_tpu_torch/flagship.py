@@ -35,11 +35,8 @@ def flagship(device=None, n_nodes: Optional[int] = None):
     N = solver.N
     planner = ContactPlanner(spec.feet_frame_names, solver.dt_nodes, gait)
 
-    q0 = spec.q_home.detach().cpu().numpy().astype(np.float32).copy()
-    p0 = dyn.foot_positions(spec.to("cpu"), torch.as_tensor(q0)).numpy()
-    foot_r = float(spec.foot_radius)
-    q0[2] += -p0[0, 2] + foot_r
-    x0 = np.concatenate([q0, np.zeros(18, np.float32)])
+    x0 = dyn.settled_state(spec)
+    q0, foot_r = x0[:18], float(spec.foot_radius)
     cnt = planner.get_contacts(0, N + 1).astype(np.float32)
     base_ref = np.zeros(12, np.float32)
     base_ref[:3] = q0[:3]

@@ -1,3 +1,4 @@
-"""The learning stack's serving side: the policy network and its loader,
-the observation and safety contracts, and the batched on-device rollouts
-(expert datagen and SafeDAgger) on the device plant."""
+"""The learning stack: the policy network (serving and training), its
+loader and payloads, the observation and safety contracts, the batched
+on-device rollouts (expert datagen and SafeDAgger), the replay database,
+the behaviour-cloning trainer and the on-device SafeDAgger loop."""

@@ -135,7 +135,7 @@ def make_batched_mpc_rollout(
         if plant_spec is not None:
             raise NotImplementedError(
                 "per-env payload randomization (randomize_payload) is not ported "
-                "(ROADMAP Queue 1, item 9)")
+                "(ROADMAP Queue 1, 'Batched datagen, the rest')")
         x0 = torch.as_tensor(x0, **f32)
         v_des = torch.as_tensor(v_des, **f32)
         B, T = x0.shape[0], n_intervals * steps

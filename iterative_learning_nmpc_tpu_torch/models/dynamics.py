@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..robots.spec import RobotSpec
@@ -57,6 +58,15 @@ def _leg_frames(spec: RobotSpec, q: torch.Tensor):
 def foot_positions(spec: RobotSpec, q: torch.Tensor) -> torch.Tensor:
     """World foot points (..., 4, 3)."""
     return _leg_frames(spec, q)[3]
+
+
+def settled_state(spec: RobotSpec) -> np.ndarray:
+    """The settled nominal state (36,) float32: q_home raised so that the
+    feet rest on the ground, at rest."""
+    q0 = spec.q_home.detach().cpu().numpy().astype(np.float32).copy()
+    p0 = foot_positions(spec.to("cpu"), torch.as_tensor(q0)).numpy()
+    q0[2] += -p0[0, 2] + float(spec.foot_radius)
+    return np.concatenate([q0, np.zeros(18, np.float32)])
 
 
 def _base_rates(q, v):
