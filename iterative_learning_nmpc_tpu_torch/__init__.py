@@ -1,17 +1,20 @@
 """iterative_learning_nmpc_tpu_torch — the PyTorch + CUDA port of the
-quadruped NMPC stack (so far: the batched warm-started RTI solve and the
-closed-loop controller on a device plant).
+quadruped NMPC stack: the batched warm-started RTI solve, the closed-loop
+controllers on a device plant, and the learning stack's serving and
+training paths.
 
 Sub-packages mirror ``iterative_learning_nmpc_tpu``:
 
-- ``robots``  : ``RobotSpec`` as a dataclass of tensors, the Go2 model.
+- ``robots``  : ``RobotSpec`` as a dataclass of tensors, the Go2 and Solo12
+                models, URDF ingestion and export.
 - ``models``  : batched rigid-body dynamics (FK, foot velocities, RNEA, mass
                 matrix, forward dynamics) and numpy state conversions.
 - ``ocp``     : the Gauss-Newton residual stack of the whole-body OCP.
-- ``mpc``     : configuration, plan interpolation and ``LocomotionMPC``.
-- ``gait``    : cyclic contact planners (numpy host API).
+- ``mpc``     : configuration, plan interpolation, ``LocomotionMPC``
+                (cyclic or contact-restricted) and ``AcyclicMPC``.
+- ``gait``    : contact and footstep planners (numpy host API).
 - ``solver``  : the batched GN-SQP/RTI solver with per-problem early exits,
-                and the phase-aligned cold boot.
+                the phase-aligned cold boot and the policy warm starts.
 - ``sim``     : the soft-contact plant on the device.
 - ``ops``     : hand-written CUDA kernels (``csrc/``) with plain PyTorch
                 twins; CPU tensors take the twin, CUDA tensors the kernel.

@@ -2,7 +2,8 @@
 
 ``flagship`` builds the Go2 trot problem the JAX package benchmarks
 (``__graft_entry__._flagship``): N=25 nodes over a 1 s horizon, standing
-start with the feet on the ground, 0.3 m/s forward reference. ``rti_chain``
+start with the feet on the ground, 0.3 m/s forward reference; with
+``robot="solo12"`` the same problem for Solo12 (its trot configuration). ``rti_chain``
 is the steady-state serving loop of ``bench._rti_chain``: one warm-started
 RTI solve per step with the equality and inequality duals carried over.
 """
@@ -19,15 +20,16 @@ from .models import dynamics as dyn
 from .mpc.config import get_quadruped_config
 from .ocp.problem import OCPParams
 from .robots.go2 import go2_spec
+from .robots.solo12 import solo12_spec
 from .solver.sqp import TrajOptSolver, make_params
 
 
-def flagship(device=None, n_nodes: Optional[int] = None):
+def flagship(device=None, n_nodes: Optional[int] = None, robot: str = "go2"):
     """(solver, X, U, params) for one problem (batch of one), cold-started,
     on ``device`` (by default the CUDA card)."""
     device = resolve_device(device)
-    spec = go2_spec(device=device)
-    gait, opt, cost = get_quadruped_config("trot", "go2")
+    spec = {"go2": go2_spec, "solo12": solo12_spec}[robot](device=device)
+    gait, opt, cost = get_quadruped_config("trot", robot)
     if n_nodes is not None:
         opt.n_nodes = n_nodes
         opt.time_horizon = n_nodes * 0.04

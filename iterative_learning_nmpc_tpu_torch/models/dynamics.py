@@ -105,8 +105,7 @@ def rnea(spec: RobotSpec, q: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
     Td = euler_rate_matrix_dot(q[..., 3:6], ypr_d)
     dw_b = matvec(R_b, matvec(Td, ypr_d) + matvec(T, ypr_dd))
     p_b = q[..., :3]
-    g_vec = torch.zeros(3, dtype=q.dtype, device=q.device)
-    g_vec[2] = gravity
+    g_vec = gravity * torch.eye(3, dtype=q.dtype, device=q.device)[2]
     dv_b = a[..., :3] + g_vec
 
     lead = q.shape[:-1]
@@ -208,9 +207,15 @@ def com_position(spec: RobotSpec, q: torch.Tensor) -> torch.Tensor:
 
 def forward_dynamics(spec: RobotSpec, q, v, tau_joints, f_ext_feet=None) -> torch.Tensor:
     """Accelerations (..., 18) from joint torques (..., 12) and world foot
-    forces: M(q) a = [0, tau] - rnea(q, v, 0, f_ext), by Cholesky."""
+    forces: M(q) a = [0, tau] - rnea(q, v, 0, f_ext), by Cholesky and two
+    triangular solves. M(q) is positive definite at every q; the factor's
+    status is not read back and the solves allocate nothing, so the plant
+    step can be captured in a CUDA graph (``torch.cholesky_solve`` of a
+    batch allocates device memory on each call; on the CPU both are the
+    same two BLAS solves, bit for bit)."""
     tau_full = torch.cat([torch.zeros(q.shape[:-1] + (6,), dtype=q.dtype,
                                       device=q.device), tau_joints], dim=-1)
     rhs = tau_full - rnea(spec, q, v, torch.zeros_like(v), f_ext_feet=f_ext_feet)
-    L = torch.linalg.cholesky(mass_matrix(spec, q))
-    return torch.cholesky_solve(rhs.unsqueeze(-1), L).squeeze(-1)
+    L = torch.linalg.cholesky_ex(mass_matrix(spec, q)).L
+    y = torch.linalg.solve_triangular(L, rhs.unsqueeze(-1), upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True).squeeze(-1)

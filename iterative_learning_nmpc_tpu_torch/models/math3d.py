@@ -44,9 +44,9 @@ def rotation_about_axis(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor
 
 
 def _unit(i: int, like: torch.Tensor) -> torch.Tensor:
-    e = torch.zeros(3, dtype=like.dtype, device=like.device)
-    e[i] = 1.0
-    return e
+    # built on the device (no host-to-device copy), so that the plant step
+    # can be captured in a CUDA graph
+    return torch.eye(3, dtype=like.dtype, device=like.device)[i]
 
 
 def ypr_to_matrix(ypr: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Closed-loop locomotion MPC controller.
 
 Counterpart of ``iterative_learning_nmpc_tpu/mpc/controller.py``
-(``LocomotionMPC``) with the cyclic, unrestricted ``ContactPlanner``:
+(``LocomotionMPC``):
 
 - A replan (warm-start shift of the primal and of both AL duals, the
   GN-SQP solve of ONE problem, Hermite interpolation to the control rate,
@@ -11,7 +11,14 @@ Counterpart of ``iterative_learning_nmpc_tpu/mpc/controller.py``
   device.
 - The first solve runs ``max_iter_first`` SQP iterations, later ones
   ``max_iter`` (RTI). A cold boot first picks the gait-phase offset with
-  ``solver.warmstart.merit_phase_boot`` (``phase_aligned_boot``).
+  ``solver.warmstart.merit_phase_boot`` (``phase_aligned_boot``; cyclic
+  unrestricted planners only).
+- ``contact_planner`` picks the footstep planner: "" the cyclic
+  ``ContactPlanner`` (no footstep restriction), "raibert" the Raibert
+  heuristic from the base state and the command, "custom" a user table
+  (``contact_planner.set_contact_locations``). The last two restrict the
+  contacts: active feet are pinned to the planned xy (``restrict = 1``,
+  ``cnt_loc``) and the base reference follows the footsteps.
 - Asynchronous replanning: a one-worker ``ThreadPoolExecutor`` solves while
   the plant steps, with the delay compensation
   ``ceil(replan_time / sim_dt) - 1``; ``async_sim_latency`` models the
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..gait.planner import ContactPlanner
+from ..gait.planner import ContactPlanner, CustomContactPlanner, RaibertContactPlanner
 from ..models import dynamics as dyn
 from ..models import transforms_np as tnp
 from ..mpc.config import get_quadruped_config
@@ -55,6 +62,7 @@ class LocomotionMPC:
         joint_ref: Optional[np.ndarray] = None,
         sim_dt: float = 1.0e-3,
         height_offset: float = 0.0,
+        contact_planner: str = "",
         print_info: bool = False,
         compute_timings: bool = True,
         solve_async: bool = True,
@@ -92,8 +100,23 @@ class LocomotionMPC:
         self._ground = float(height_offset) + float(spec.foot_radius)
 
         self.dt_nodes: float = self.solver.dt_nodes
-        self.contact_planner = ContactPlanner(spec.feet_frame_names, self.dt_nodes,
-                                              self.config_gait)
+        self._contact_planner_str = contact_planner.lower()
+        feet, dt_nodes = spec.feet_frame_names, self.dt_nodes
+        if self._contact_planner_str == "raibert":
+            # hip xy offsets in the base frame
+            hip_idx = [6 + 3 * i for i in range(4)]
+            offset_hip_b = np.zeros((4, 3))
+            offset_hip_b[:, :2] = spec.joint_pos.detach().cpu().numpy()[hip_idx, :2]
+            self.contact_planner = RaibertContactPlanner(
+                feet, dt_nodes, self.config_gait, offset_hip_b,
+                y_offset=0.02, x_offset=0.04, foot_size=0.0085, cache_cnt=False)
+            self.restrict_cnt = True
+        elif self._contact_planner_str == "custom":
+            self.contact_planner = CustomContactPlanner(feet, dt_nodes, self.config_gait)
+            self.restrict_cnt = True
+        else:
+            self.contact_planner = ContactPlanner(feet, dt_nodes, self.config_gait)
+            self.restrict_cnt = False
         self.Kp = self.config_opt.Kp
         self.Kd = self.config_opt.Kd
         self.sim_dt = sim_dt
@@ -105,13 +128,16 @@ class LocomotionMPC:
         self.recover_on_divergence = recover_on_divergence
         self.n_interp_plan = round(self.config_opt.time_horizon / sim_dt)
 
-        self.phase_aligned_boot = phase_aligned_boot
-        N = self.config_opt.n_nodes
-        self._boot_windows = contact_windows(self.contact_planner, N)
-        # the planner's own swing peaks when the solver optimizes them, the
-        # same rule as every replan (see optimize)
-        self._boot_peaks = (peak_windows(self.contact_planner, N)
-                            if self.config_opt.opt_peak else 1.0 - self._boot_windows)
+        # restricted planners pin footsteps to the node clock's phase, so the
+        # boot may not move it
+        self.phase_aligned_boot = phase_aligned_boot and not self.restrict_cnt
+        if self.phase_aligned_boot:
+            N = self.config_opt.n_nodes
+            self._boot_windows = contact_windows(self.contact_planner, N)
+            # the planner's own swing peaks when the solver optimizes them,
+            # the same rule as every replan (see optimize)
+            self._boot_peaks = (peak_windows(self.contact_planner, N)
+                                if self.config_opt.opt_peak else 1.0 - self._boot_windows)
         self.executor = None
         self.reset(reset_solver=False)
 
@@ -198,6 +224,7 @@ class LocomotionMPC:
         self._last_dt_sol = np.full(self.config_opt.n_nodes, self.dt_nodes)
         self._last_base_ref = np.zeros(12)
         self._last_base_ref_e = np.zeros(12)
+        self._last_cnt_loc = None
         self.timings = defaultdict(list)
 
         if self.executor is not None:
@@ -255,27 +282,68 @@ class LocomotionMPC:
         base_ref_e[10:12] = 0.0
         return base_ref, base_ref_e
 
+    def compute_base_ref_cnt_restricted(self, q: np.ndarray, cnt_loc: np.ndarray):
+        """Running and terminal base references from a footstep plan
+        (n_foot, N+1, 3): between the centres of the first and the last
+        node where every foot has a location, at the nominal height."""
+        nonzero = np.all(cnt_loc != 0.0, axis=-1)  # (4, n_nodes)
+        first_ids = np.argwhere(nonzero.all(axis=0))
+        base_ref = np.zeros(12)
+        base_ref_e = np.zeros(12)
+        if len(first_ids) > 0:
+            i0, i1 = int(first_ids[0, 0]), int(first_ids[-1, 0])
+            center_first = cnt_loc[:, i0, :].mean(axis=0)
+            center_last = cnt_loc[:, i1, :].mean(axis=0)
+        else:
+            center_first = cnt_loc[:, 0, :].mean(axis=0)
+            center_last = cnt_loc[:, -1, :].mean(axis=0)
+        alpha = 0.35
+        base_ref[:2] = alpha * center_first[:2] + (1 - alpha) * center_last[:2]
+        base_ref_e[:2] = center_last[:2]
+        base_ref[2] = self.config_gait.nom_height + self.height_offset
+        base_ref_e[2] = base_ref[2]
+        return base_ref, base_ref_e
+
     # ------------------------------------------------------------------
     @time_fn("optimize")
     def optimize(self, q: np.ndarray, v: np.ndarray):
-        """One full replan from the chart state (q, v): parameters, cold
-        boot if there is no warm start, solve, interpolate. Returns the
+        """One full replan from the chart state (q, v): parameters (with a
+        restricted planner, the footsteps and the base reference they give),
+        cold boot if there is no warm start, solve, interpolate. Returns the
         host plan (q, v, a, f, tau_ff), float64."""
         node = self.current_opt_node
         N = self.config_opt.n_nodes
         cnt = self.contact_planner.get_contacts(node, N + 1).astype(np.float32)
         peak = (self.contact_planner.get_peaks(node, N + 1).astype(np.float32)
                 if self.config_opt.opt_peak else 1.0 - cnt)
-        base_ref, base_ref_e = self.compute_base_ref_vel_tracking(q)
+        cnt_loc = None
+        if self.restrict_cnt:
+            if self._contact_planner_str == "raibert":
+                com_xyz = dyn.com_position(self.spec, torch.as_tensor(
+                    q, dtype=torch.float32, device=self.device)).cpu().numpy()
+                # the planner takes the chart's [yaw, pitch, roll]
+                self.contact_planner.set_state(q[:3], v[:3], q[3:6], com_xyz, self.v_des,
+                                               self.w_des[2])
+            cnt_loc = self.contact_planner.get_locations(node, N + 1)
+            base_ref, base_ref_e = self.compute_base_ref_cnt_restricted(q, cnt_loc)
+        else:
+            base_ref, base_ref_e = self.compute_base_ref_vel_tracking(q)
         self._last_base_ref = base_ref.copy()
         self._last_base_ref_e = base_ref_e.copy()
+        self._last_cnt_loc = None if cnt_loc is None else np.array(cnt_loc)
 
         x0 = np.concatenate([q, v]).astype(np.float32)
         plane = np.zeros((4, N + 1, 3), dtype=np.float32)
         plane[:, :, 2] = self._ground
+        if cnt_loc is not None:
+            # active contacts pinned to the planned xy where one is given
+            provided = np.all(cnt_loc != 0.0, axis=-1)
+            plane[:, :, :2] = np.where(provided[:, :, None], cnt_loc[:, :, :2], 0.0)
         params = make_params(
             self.solver, x0, cnt, peak=peak, plane_point=plane,
-            cnt_loc=np.zeros((4, N + 1, 3), np.float32), restrict=0.0,
+            cnt_loc=(np.zeros((4, N + 1, 3), np.float32) if cnt_loc is None
+                     else cnt_loc.astype(np.float32)),
+            restrict=1.0 if self.restrict_cnt else 0.0,
             base_ref=base_ref.astype(np.float32),
             base_ref_e=base_ref_e.astype(np.float32),
             joint_ref=self.joint_ref.astype(np.float32),

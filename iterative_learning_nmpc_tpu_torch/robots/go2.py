@@ -8,7 +8,16 @@ from .spec import RobotSpec, build_quadruped_spec
 _Q_HOME = [0.0, 0.9, -1.8]
 
 
-def go2_spec(dtype=torch.float32, device=None) -> RobotSpec:
+def go2_spec(dtype=torch.float32, device=None, urdf_path=None) -> RobotSpec:
+    """Go2 model on ``device`` (by default the CUDA card). With
+    ``urdf_path``, the robot description file is parsed instead
+    (``robots.urdf.parse_urdf``); ``assets/go2.urdf`` is this table
+    exported."""
+    if urdf_path is not None:
+        from .urdf import parse_urdf
+
+        return parse_urdf(urdf_path, name="go2", q_home_joints=_Q_HOME,
+                          base_height_home=0.315, dtype=dtype, device=device)
     return build_quadruped_spec(
         name="go2",
         trunk_mass=6.921,

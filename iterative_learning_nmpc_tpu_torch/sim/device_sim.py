@@ -109,6 +109,36 @@ def step(spec: RobotSpec, state: SimState, tau_joints, cp: ContactParams,
     return SimState(q, v, t)
 
 
+def graphed(fn, *example):
+    """``fn`` (tensors -> a tuple of tensors) as one CUDA graph, captured at
+    the example inputs' shapes: ``call(*tensors)`` copies them into the
+    graph's input buffers, replays the graph and returns its output
+    buffers, which the next call overwrites. A replay launches the kernels
+    ``fn`` launches, in the same order, with none of the host's per-launch
+    cost (the eager plant step is host-bound: ~3,800 launches). ``fn`` may
+    not copy from the host or wait for the device (``device_sim.step``
+    does neither). On CPU tensors ``call`` is ``fn``."""
+    if example[0].device.type != "cuda":
+        return fn
+    inputs = [t.clone() for t in example]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*inputs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outputs = fn(*inputs)
+
+    def call(*args):
+        for buf, a in zip(inputs, args):
+            buf.copy_(a)
+        graph.replay()
+        return outputs
+
+    return call
+
+
 def pd_rollout(spec: RobotSpec, q0, v0, pd_targets, kp: float = 20.0,
                kd: float = 1.5, dt: float = 1.0e-3,
                cp: Optional[ContactParams] = None, force_schedule=None):

@@ -99,8 +99,8 @@ def resolve_linearize(opt: MPCOptConfig) -> str:
     lin, ric = opt.linearize_mode, opt.riccati_mode
     if ric in ("sequential", "associative"):
         raise NotImplementedError(
-            f"riccati_mode={ric!r} is not ported yet (ROADMAP Queue 1 item "
-            "12); the port has 'auto' and 'pallas'")
+            f"riccati_mode={ric!r} is not ported yet (ROADMAP Queue 1 item 9, "
+            "'Options, last'); the port has 'auto' and 'pallas'")
     if ric not in ("auto", "pallas"):
         raise ValueError(f"unknown riccati_mode {ric!r}")
     if lin not in ("auto", "dynjac", "jacfwd", "jacrev"):

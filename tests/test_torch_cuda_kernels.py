@@ -12,7 +12,9 @@ the stress cases of tests/test_torch_lingram_structure.py) or the
 interior states by 5e-4 (riccati: a well-conditioned fp32 step, as in the
 steady RTI regime); for dynjac also the seeded states of
 tests/test_torch_dyncore_legs.py at M = 1, 25, 12,800, with the structural
-zeros of J held exact; for policy_pd and policy_pd_bf16 the shipped
+zeros of J held exact; kernels 1, 2, 3 and 7 also at Solo12's constants
+(its standing problem, converged) and kernel 2 with the contacts
+restricted (``restrict`` = 1, footsteps and patches); for policy_pd and policy_pd_bf16 the shipped
 policy's folded weights (and seeded nets up to 3 x 1024) and seeded normal
 inputs, kernel 8's shipped-net output held bit for bit to
 tests/data/go2_trot_policy_pd_kernel_golden.npz; for the node solves the
@@ -32,7 +34,7 @@ from iterative_learning_nmpc_tpu_torch.interop import random_policy_payload
 from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore, dyncore_plain
 from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain, structural_zeros
 from iterative_learning_nmpc_tpu_torch.ops.lingram import (
-    ROW_GROUPS, gate_failures, gram_gate, lingram, lingram_plain)
+    ROW_GROUPS, _double, gate_failures, gram_gate, lingram, lingram_plain)
 from iterative_learning_nmpc_tpu_torch.ops import probes
 from iterative_learning_nmpc_tpu_torch.ops.policy_pd import (
     bf16_kernel_attributes, fold_batchnorm, make_fused_policy_pd, policy_pd, policy_pd_bf16,
@@ -257,6 +259,77 @@ def test_dynjac_kernel_attributes(card):
     assert {k: v[1:] for k, v in report.items()} == {"dynjac_kernel": (0, 0, 0)}, report
     regs, local, blocks = kernel_attributes()["dynjac_kernel"]
     assert local == 0 and blocks >= 1, (regs, local, blocks)
+
+
+@pytest.fixture(scope="module")
+def solo12_case(card):
+    """Solo12's standing problem (about a sixth of Go2's mass, calf
+    inertias of 3.2e-6), converged in 15 iterations, then B problems with
+    1 cm-scale noise on the initial state."""
+    solver, X, U, params = F.flagship(device=torch.device("cuda"), robot="solo12")
+    conv = solver.solve(X, U, params, 15)
+    p = params.replace(lam_ineq=conv.lam_ineq)
+    return (solver, conv.X, conv.U, p, *F.perturbed_batch(conv.X, conv.U, p, B, seed=5))
+
+
+@pytest.mark.cuda
+def test_kernels_at_solo12_constants(solo12_case):
+    """Kernels 1, 2, 3 and 7 within their Go2 bounds at Solo12's robot
+    constants: lingram by gram_gate, the fused Riccati by the bench's gate,
+    dyncore by 1e-5 of its scale, dynjac by tests/test_dynjac_kernel.py's
+    bounds with its structural zeros exact."""
+    solver, X1, U1, p1, Xb, Ub, pb = solo12_case
+    spec, w = solver.spec, solver.weights
+    assert spec.name == "solo12"
+    assert not gate_failures(gram_gate(lingram, spec, w, Xb, Ub, pb, True))
+    args = (spec, w, solver.dt_nodes, float(solver.opt.lm_reg), float(solver.cost.reg_eps_e),
+            *lingram(spec, w, Xb, Ub, pb), solver._defects(Xb, Ub, pb), pb.x0 - Xb[:, 0],
+            Xb[:, -1], pb.peak[:, :, -1], pb.base_ref_e, pb.joint_ref, pb.step_height)
+    # the bench's gate, or, where the fp32 twin is itself further than it
+    # from the float64 step on the same blocks (Solo12's lighter links), the
+    # sweep kernels' rule: no further from the float64 step than twice the
+    # fp32 twin
+    k, tw = riccati_rollout(*args), riccati_rollout_plain(*args)
+    ref = riccati_rollout_plain(_double(spec), _double(w), *(
+        t.double() if isinstance(t, torch.Tensor) else t for t in args[2:]))
+    r_k, r_p = (max(_max_rel(a.double(), b) for a, b in zip(o, ref)) for o in (k, tw))
+    assert max(_max_rel(a, b) for a, b in zip(k, tw)) <= 1e-3 or r_k <= 2.0 * r_p + 1e-4
+    M = B * solver.N
+    rows = (Xb[:, :-1].reshape(M, 36).contiguous(), Ub[..., :18].reshape(M, 18).contiguous(),
+            Ub[..., 18:].reshape(M, 12).contiguous())
+    _dyncore_check(spec, *rows)
+    cnt = p1.cnt[:, :, :-1].transpose(1, 2).reshape(solver.N, 4, 1)
+    args = (X1[:, :-1].reshape(-1, 36).contiguous(), U1[..., :18].reshape(-1, 18).contiguous(),
+            (cnt * U1[..., 18:].reshape(-1, 4, 3)).reshape(-1, 12).contiguous())
+    (pk, Jk), (pp, Jp) = dynjac(spec, *args), dynjac_plain(spec, *args)
+    assert float((pk - pp).abs().max()) <= 1e-5 * max(1.0, float(pp.abs().max()))
+    assert float((Jk - Jp).abs().max()) <= 3e-5 * float(Jp.abs().max())
+    assert bool((Jk[:, structural_zeros().to(Jk.device)] == 0).all())
+
+
+@pytest.mark.cuda
+def test_lingram_kernel_at_restrict(card):
+    """Kernel 2 with the contacts restricted (``restrict`` = 1): footsteps
+    5 cm ahead of the standing feet, a 3 cm patch radius on half the
+    problems (the hinge active) and the controller's 1e3 on the rest, with
+    every row group on and each alone; the foot-displacement and patch
+    groups are not zero."""
+    solver, X, U, p = card
+    Xb, Ub, pb = F.perturbed_batch(X, U, p, 4, seed=6)
+    from iterative_learning_nmpc_tpu_torch.models.dynamics import foot_positions
+
+    loc = foot_positions(solver.spec, Xb[:, 0, :18]).clone()
+    loc[..., 0] += 0.05
+    loc[..., 2] = 0.0085
+    cnt_loc = loc[:, :, None, :].expand(-1, -1, solver.N + 1, -1).contiguous()
+    radius = pb.patch_radius.clone()
+    radius[:2] = 0.03
+    pb = pb.replace(cnt_loc=cnt_loc, patch_radius=radius, restrict=torch.ones_like(pb.restrict))
+    spec, w = solver.spec, solver.weights
+    gate = gram_gate(lingram, spec, w, Xb, Ub, pb, True)
+    assert not gate_failures(gate)
+    for group in ("foot_disp", "patch"):
+        assert max(row[2] for row in gate[group]) > 3e-4, group     # a part's bound > the floor
 
 
 @pytest.mark.cuda
