@@ -156,6 +156,21 @@ rows, and the on-device SafeDAgger loop). Phases, one line each:
      timed beside cold_start.
      Phases 22-25 set the counters to 0 before and read them after; their
      closed loops step the plant as one CUDA graph (device_sim.graphed).
+ 26. randomized datagen and scale-out: B=256 x 0.8 s of expert datagen,
+     each plant with its payload and terrain (randomize_payload,
+     randomize_terrain), 50-70 N pushes on the second half
+     (sample_force_windows), the draws equal to
+     tests/data/go2_trot_randomized_datagen_golden.npz's; the 256 payload
+     plants alone (no controller, pushes held on) within 1e-4 (q) / 1e-3
+     (v) of the JAX plant's states stored there; the datagen's valid share
+     within RAND_VALID_MARGIN of the JAX run on the draws, kernels 1-3
+     launched, the payload plant step as a CUDA graph bit-equal to the
+     eager step, rows/s beside phase 12's; graft_entry.dryrun_multichip(1)
+     in a NCCL process group of one rank (the sharded solve, the dp train
+     step and the sharded SafeDAgger data step within the JAX dryrun's
+     gates; its counters read alone, kernels 1-3 launched); the datagen and
+     DAgger CLIs (examples/) as subprocesses, their npz read back by
+     Database.load, their launches parsed from their output.
 
 It then prints one JSON line with the kernels' results (each with its
 bound: the larger of its operations over the card's fp32 rate, bf16
@@ -169,6 +184,7 @@ no CPU fallback.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -237,6 +253,25 @@ SOLO12_V, SOLO12_S, SOLO12_PUSH_V, SOLO12_PUSH_S = 0.2, 2.0, 0.25, 3.0
 SOLO12_PUSH = ((1.2, 1.4, (8.0, 4.0, 0.0)),)
 SOLO12_REF = {"trot": (SOLO12_V, 0.994, 0.1729), "push": (SOLO12_PUSH_V, 0.796, 0.1947)}
 FALL_MARGIN_S, HOP_S = 0.2, 2.5
+# phase 26: the randomized datagen's valid share within RAND_VALID_MARGIN of
+# the JAX package's on the same draws (0.9041, 79 of 256 envs fall;
+# scripts/make_torch_randomized_datagen_golden.py, JAX on the CPU): eight
+# envs' worth of the share, MAX_FALLS' margin, since when an env falls is
+# not reproducible across fp32 libraries. Measured: the card -0.0012 (77
+# falls; H100 80GB HBM3, 700 W); the port on the CPU on every 4th env
+# +0.0023 (22 falls each, 13 of 64 envs falling at other times); the card
+# without the payloads +0.0646, without the terrain +0.0357
+# (scripts/randomized_datagen_gate_torch.py). The valid share is an
+# aggregate; the payload plants are held state by state to the JAX plant
+# (the golden's plant_q / plant_v) within tests/test_torch_plant.py's
+# bounds. The port on the CPU is 1.2e-6 (q) / 1.1e-4 (v) off it; a push
+# divided by every env's summed mass, a payload on the neighbour env or no
+# payload is 3.6e-4..1.3e-3 (q) and 4.3e-2..1.3 (v) off it by step 10. The
+# CLIs' batch and seconds
+RAND_VALID_MARGIN = 8 / 256
+PLANT_Q_TOL, PLANT_V_TOL = 1e-4, 1e-3
+CLI_B, CLI_DAGGER_B, CLI_S, CLI_TIMEOUT_S = 16, 8, 0.08, 300
+RATES = {}                 # rows/s by path, for the phases that compare them
 
 
 def fail(msg: str) -> None:
@@ -499,6 +534,7 @@ def policy_phases(dev, card, spec_d, q0, kernels, launches, record) -> dict:
         fail(f"datagen did not launch the batch solver's kernels: {dg_launches}")
 
     datagen_rows = (rows, vd)
+    RATES["datagen"] = B_ENV * T_dg / wall_dg
 
     # ---- 10. policy_pd against its twin, on the datagen's observations ----
     layers = served.layers
@@ -2036,6 +2072,182 @@ def warmstart_phase(dev, card, kernels) -> dict:
         fail(f"warm starts: phase pick {off_g} != golden {g['offset']}")
     return {f"{name} B={B}": v["policy_pd"] for (name, B), v in launches.items()}
 
+def scale_phase(dev, card, kernels) -> dict:
+    """Phase 26: the randomized datagen (B_ENV envs, each plant with its
+    payload and terrain, pushes on the second half) against the JAX run
+    of the same draws; ``graft_entry.dryrun_multichip(1)`` in a NCCL
+    process group of one rank; the datagen and DAgger CLIs as
+    subprocesses, their npz read back. Returns the launches by part: the
+    datagen's ("26"), the dryrun's ("26 dryrun") and the two CLIs' summed,
+    as they print them ("26 cli")."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch.graft_entry import dryrun_multichip
+    from iterative_learning_nmpc_tpu_torch.learning.database import Database
+    from iterative_learning_nmpc_tpu_torch.learning.ondevice import make_batched_mpc_rollout
+    from iterative_learning_nmpc_tpu_torch.learning.randomize import (
+        randomize_payload, randomize_terrain, sample_force_windows)
+    from iterative_learning_nmpc_tpu_torch.parallel.mesh import (
+        init_process_group, shutdown_distributed)
+    from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec
+    from iterative_learning_nmpc_tpu_torch.sim import device_sim
+
+    t_phase = time.perf_counter()
+    g = load_golden("go2_trot_randomized_datagen")
+    B, seed, n_int = g["x0"].shape[0], int(g["seed"]), int(g["n_intervals"])
+    spec = go2_spec(device=dev)
+    gen = lambda k: torch.Generator().manual_seed(seed + k)
+    ps = randomize_payload(spec, gen(0), B)
+    tr = randomize_terrain(gen(1), B, device=dev)
+    fw = sample_force_windows(gen(2), B, n_int * 40, device=dev)
+    fw[: B // 2] = 0.0
+    draws = dict(mass=ps.mass, com=ps.com, ground_height=tr.ground_height,
+                 stiffness=tr.contact.stiffness, damping=tr.contact.damping,
+                 friction_mu=tr.contact.friction_mu, vel_smoothing=tr.contact.vel_smoothing,
+                 force_windows=fw)
+    differ = [k for k, v in draws.items() if not np.array_equal(v.cpu().numpy(), g[k])]
+    if differ:
+        fail(f"randomized datagen: the card's draws differ from the reference's in {differ}")
+    # the payload plants alone against the JAX plant: no joint torque, each
+    # env's push held on, q and v at the stored steps
+    st = device_sim.SimState(torch.as_tensor(g["x0"][:, :18], device=dev),
+                             torch.zeros(B, 18, device=dev), torch.zeros(B, device=dev))
+    zero_tau, f_push = torch.zeros(B, 12, device=dev), fw[:, 2:5].contiguous()
+    check, errs = [int(k) for k in g["plant_check"]], []
+    for k in range(1, max(check) + 1):
+        st = device_sim.step(ps, st, zero_tau, tr.contact, f_ext=f_push,
+                             ground_height=tr.ground_height)
+        if k in check:
+            i = check.index(k)
+            errs.append((k, float((st.q.cpu() - torch.as_tensor(g["plant_q"][i])).abs().max()),
+                         float((st.v.cpu() - torch.as_tensor(g["plant_v"][i])).abs().max())))
+    print(f"[payload plants vs JAX] {B} plants, no joint torque, pushes held on: max|dq|, "
+          f"max|dv| at steps " + ", ".join(f"{k}: {dq:.2e}, {dv:.2e}" for k, dq, dv in errs)
+          + f" (<= {PLANT_Q_TOL:.0e}, {PLANT_V_TOL:.0e})", flush=True)
+    if any(dq > PLANT_Q_TOL or dv > PLANT_V_TOL for _, dq, dv in errs):
+        fail("the payload plants differ from the JAX plant")
+    datagen = make_batched_mpc_rollout(spec, n_intervals=n_int, device=dev)
+    zero(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = datagen(g["x0"], g["v_des"], ps, tr, force_windows=fw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read(kernels)
+    T = rows.q.shape[1]
+    valid_env = rows.valid.mean(1).cpu().numpy()
+    pushed = np.arange(B) >= B // 2
+    fell = valid_env < 1.0
+    finite = all(bool(torch.isfinite(t).all()) for t in rows)
+    z = (rows.q[..., 2] - tr.ground_height[:, None]).cpu().numpy()
+    ref = float(g["valid_env"].mean())
+    print(f"[randomized datagen] B={B} x {n_int} intervals ({T} control steps; payload 0-3 kg, "
+          f"terrain, 50-70 N pushes on {int(pushed.sum())} envs): valid {valid_env.mean():.4f} "
+          f"(push-free {valid_env[~pushed].mean():.4f}, pushed {valid_env[pushed].mean():.4f}; "
+          f"JAX on the CPU, same draws, {ref:.4f}: gate |d| <= {RAND_VALID_MARGIN:.4f}), fell "
+          f"{int(fell.sum())} (JAX {int(g['fell'].sum())}), base z above ground "
+          f"{z.min():.4f}..{z.max():.4f}, finite {finite}; {B * T / wall:.1f} rows/s "
+          f"({wall:.2f} s wall; nominal phase 12: {RATES['datagen']:.1f} rows/s; {card}), "
+          f"launches {launches}", flush=True)
+    if not (finite and abs(valid_env.mean() - ref) <= RAND_VALID_MARGIN):
+        fail("randomized datagen: non-finite rows or valid share off the JAX run's")
+    if min(launches[k] for k in ("dyncore", "lingram", "riccati_rollout")) <= 0:
+        fail(f"randomized datagen did not launch kernels 1-3: {launches}")
+    # the plant step on the payload spec, captured as one CUDA graph, against
+    # the eager step from the rollout's last state
+    step = lambda q, v, t, u: tuple(device_sim.step(
+        ps, device_sim.SimState(q, v, t), u, tr.contact, f_ext=fw[:, 2:5],
+        ground_height=tr.ground_height))
+    args = (rows.q[:, -1].contiguous(), rows.v[:, -1].contiguous(),
+            torch.zeros(B, device=dev), rows.tau[:, -1].contiguous())
+    eager, replay = step(*args), device_sim.graphed(step, *args)(*args)
+    same = all(torch.equal(a, b) for a, b in zip(eager, replay))
+    print(f"[randomized datagen] the payload plant step as a CUDA graph: bit-equal to the "
+          f"eager step {same}", flush=True)
+    if not same:
+        fail("the graphed payload plant step differs from the eager one")
+
+    # dryrun_multichip(1) inside a real NCCL process group of one rank
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    init_process_group(f"127.0.0.1:{port}", 1, 0, device=dev, timeout=120.0)
+    zero(kernels)
+    try:
+        dry = dryrun_multichip(1, device=dev)
+    finally:
+        shutdown_distributed()
+    torch.cuda.synchronize()
+    dry_launches = read(kernels)
+    print(f"[dryrun_multichip(1)] backend {dry['backend']}, world size {dry['world_size']}: "
+          f"{json.dumps(dry)}; launches {dry_launches}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if dry["backend"] != "nccl":
+        fail(f"dryrun_multichip ran on {dry['backend']}, not NCCL")
+    if min(dry_launches[k] for k in ("dyncore", "lingram", "riccati_rollout")) <= 0:
+        fail(f"dryrun_multichip did not launch kernels 1-3: {dry_launches}")
+
+    # the two CLIs, side by side on the card, each npz read back
+    mod = "iterative_learning_nmpc_tpu_torch.examples."
+    with tempfile.TemporaryDirectory(prefix="phase26_") as tmp:
+        cmds = {
+            "datagen": [sys.executable, "-m", mod + "ondevice_datagen", "--batch", str(CLI_B),
+                        "--seconds", str(CLI_S), "--randomize", "--device", str(dev), "--out",
+                        os.path.join(tmp, "datagen.npz")],
+            "dagger": [sys.executable, "-m", mod + "ondevice_dagger", "--policy",
+                       os.path.join(ROOT, "assets", ARTIFACT), "--batch", str(CLI_DAGGER_B),
+                       "--sim_time", str(CLI_S), "--iters", "1", "--goals", f"{V_DES},0,0",
+                       "--epochs", "1", "--delay_steps", str(DELAY_STEPS), "--mpc_min_steps",
+                       str(MPC_MIN_STEPS), "--randomize", "--device", str(dev), "--out",
+                       os.path.join(tmp, "dagger")]}
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+                 for k, c in cmds.items()}
+        logs = {}
+        try:
+            for k, p in procs.items():
+                logs[k] = p.communicate(timeout=CLI_TIMEOUT_S)[0]
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+                p.communicate()
+            fail(f"a CLI ran past {CLI_TIMEOUT_S} s")
+        for k, p in procs.items():
+            if p.returncode != 0:
+                fail(f"the {k} CLI exited {p.returncode}:\n{logs[k][-3000:]}")
+        npz = {"datagen": os.path.join(tmp, "datagen.npz"),
+               "dagger": next(ln.split(": ", 1)[1] for ln in logs["dagger"].splitlines()
+                              if ln.startswith("final dataset: "))}
+        cli, cli_launches = {}, dict.fromkeys(launches, 0)
+        for k, path in npz.items():
+            db = Database(limit=10 ** 7)
+            db.load(path)
+            line = [ln for ln in logs[k].splitlines() if "launches" in ln][-1]
+            counts = {n: int(c) for n, c in re.findall(r"(\w+) (\d+)",
+                                                       line.split("launches", 1)[1])}
+            for n, c in counts.items():
+                cli_launches[n] += c
+            cli[k] = dict(rows=len(db), path=os.path.basename(path), launches=counts)
+            print(f"[{k} CLI] {path} read back by Database.load: {len(db)} rows; launches "
+                  f"{counts}", flush=True)
+    print(f"[CLIs] {time.perf_counter() - t0:.1f} s side by side; phase 26 wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if min(c["rows"] for c in cli.values()) <= 0:
+        fail(f"a CLI wrote no rows: {cli}")
+    if min(cli["datagen"]["launches"].get(n, 0) for n in ("dyncore", "lingram",
+                                                           "riccati_rollout")) <= 0 \
+            or cli["dagger"]["launches"].get("policy_pd", 0) <= 0:
+        fail(f"the datagen CLI did not launch kernels 1-3 or the DAgger CLI kernel 8: {cli}")
+    return {"26": launches, "26 dryrun": dry_launches, "26 cli": cli_launches}
+
+
 def solo12_gates(loops) -> None:
     """Phase 22's closed-loop gates. On the device plant the JAX controller
     does not keep Solo12 up: its base sinks below half the nominal height at
@@ -2471,6 +2683,8 @@ def main() -> None:
                 "23": restricted_phase(dev, card, kernels),
                 "24": acyclic_phase(dev, card, kernels)}
     ws = warmstart_phase(dev, card, kernels)
+    # ---- 26. randomized datagen, the sharded dryrun, the CLIs ----
+    by_phase.update(scale_phase(dev, card, kernels))
     for r in results:
         r["launches_by_phase"] = {ph: c[r["name"]] for ph, c in by_phase.items()}
     next(r for r in results if r["name"] == "policy_pd")["launches_by_phase"]["25"] = ws

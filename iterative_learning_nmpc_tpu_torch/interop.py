@@ -18,7 +18,7 @@ import torch
 from .device import resolve_device
 from .learning.network import GoalConditionedPolicyNet
 from .ocp.problem import OCPParams, Weights
-from .robots.spec import _TENSOR_FIELDS, RobotSpec
+from .robots.spec import _TENSOR_FIELDS, PAYLOAD_FIELDS, RobotSpec
 from .sim.device_sim import ContactParams, SimState
 
 
@@ -28,14 +28,27 @@ def _t(x, device):
 
 
 def spec_from_numpy(src, device=None) -> RobotSpec:
-    """RobotSpec from an object with the spec's fields (metadata + arrays)."""
+    """RobotSpec from an object with the spec's fields (metadata + arrays).
+    A payload-randomized spec (the JAX package's ``randomize_payload``:
+    ``mass`` (B, nv), ``com`` (B, nv, 3)) keeps its batch, which the port's
+    dynamics and plant broadcast; any other field must be nominal."""
     meta = {f: getattr(src, f) for f in
             ("name", "nv", "nu", "parent", "jtype", "foot_body",
              "feet_frame_names")}
     meta = {k: (tuple(v) if isinstance(v, (list, tuple)) else v)
             for k, v in meta.items()}
-    return RobotSpec(**meta, **{f: _t(getattr(src, f), device)
+    spec = RobotSpec(**meta, **{f: _t(getattr(src, f), device)
                                 for f in _TENSOR_FIELDS})
+    nominal = {"joint_axis": 2, "joint_pos": 2, "mass": 1, "com": 2, "inertia": 3,
+               "foot_offset": 2, "foot_radius": 0, "torque_limit": 1, "q_home": 1,
+               "joint_limits": 2}
+    lead = spec.batch_shape
+    for f, nd in nominal.items():
+        extra = getattr(spec, f).shape[:getattr(spec, f).dim() - nd]
+        if extra != (lead if f in PAYLOAD_FIELDS else ()):
+            raise ValueError(f"spec field {f} of shape {tuple(getattr(spec, f).shape)}: only "
+                             f"{PAYLOAD_FIELDS} may carry a per-environment batch, the same one")
+    return spec
 
 
 def weights_from_numpy(src, device=None) -> Weights:

@@ -11,6 +11,12 @@ environment was valid and the expert in control, aggregates them with the
 previous dataset and writes the snapshot; training warm-starts from the
 current policy (``train.BehavioralCloning``, on the same device).
 
+With ``randomize`` each data step draws its own domain randomization
+(``randomize.randomize_payload``, ``randomize_terrain``,
+``sample_force_windows`` on half the envs) from ``torch.Generator``s
+seeded as the JAX package seeds its keys: the plants carry it, the expert's
+model stays nominal.
+
 The aggregate is written as ``agg_dataset.npz`` (``database.Database``'s
 npz snapshot), where the JAX package writes ``agg_dataset.hdf5``: the GPU
 machines the port runs on need not have ``h5py``. An ``initial_dataset``
@@ -31,6 +37,7 @@ from ..robots.spec import RobotSpec
 from . import ondevice
 from .database import Database
 from .network import load_policy
+from .randomize import randomize_payload, randomize_terrain, sample_force_windows
 from .train import BehavioralCloning, TrainConfig
 
 
@@ -61,18 +68,24 @@ class SafeDaggerConfig:
 
 class OnDeviceSafeDagger:
     """The SafeDAgger outer loop with ``batch`` parallel on-device rollouts
-    per data step, on ``device`` (by default the CUDA card). The JAX
-    package's domain-randomisation arguments (``randomize``,
-    ``payload_kwargs``, ``terrain_kwargs``) come with per-environment
-    payload randomisation (``randomize_payload``), which is not ported."""
+    per data step, on ``device`` (by default the CUDA card). ``randomize``
+    draws per-iteration payloads (``payload_kwargs`` for
+    ``randomize_payload``), terrain (``terrain_kwargs`` for
+    ``randomize_terrain``) and 50-70 N pushes on half the envs."""
 
     def __init__(self, spec: RobotSpec, cfg: SafeDaggerConfig, initial_policy: str,
                  initial_dataset: Optional[str] = None, batch: int = 32,
-                 joint_noise: float = 0.03, device=None):
+                 joint_noise: float = 0.03, randomize: bool = False,
+                 payload_kwargs: Optional[dict] = None,
+                 terrain_kwargs: Optional[dict] = None, device=None):
         self.device = resolve_device(device)
+        self.spec = spec.to(self.device)
         self.cfg = cfg
         self.batch = batch
         self.joint_noise = joint_noise
+        self.randomize = randomize
+        self.payload_kwargs = payload_kwargs or {}
+        self.terrain_kwargs = terrain_kwargs or {}
         self.policy_path = initial_policy
         self.dataset_path = initial_dataset
         self.expert_ratio_history: List[float] = []
@@ -99,6 +112,20 @@ class OnDeviceSafeDagger:
             db.load(path)
         return db
 
+    def draw_randomization(self):
+        """(plant_spec, terrain, force_windows) of the next data step, from
+        generators seeded with the JAX keys' seeds (cfg.seed + 7919, 104729,
+        1299709 times the iteration); the first half of the envs stays
+        push-free."""
+        cfg, B, dev = self.cfg, self.batch, self.device
+        it = len(self.expert_ratio_history)
+        gen = lambda k: torch.Generator().manual_seed(cfg.seed + k * it)
+        ps = randomize_payload(self.spec, gen(7919), B, **self.payload_kwargs)
+        tr = randomize_terrain(gen(104729), B, device=dev, **self.terrain_kwargs)
+        fw = sample_force_windows(gen(1299709), B, self.n_intervals * 40, device=dev)
+        fw[: B // 2] = 0.0
+        return ps, tr, fw
+
     def collect(self, policy_path: str, v_des, prev_dataset: Optional[str],
                 tag: str) -> Optional[str]:
         """One data step: B combined-controller rollouts, the expert rows
@@ -122,8 +149,10 @@ class OnDeviceSafeDagger:
             x0b[:, 18:21] += self._rng.normal(0, cfg.x0_vel_noise, (B, 3)).astype(np.float32)
         vdes = np.tile(np.asarray(v_des, np.float32)[None], (B, 1))
 
+        ps, tr, fw = self.draw_randomization() if self.randomize else (None, None, None)
         out = self.rollout(torch.as_tensor(x0b, device=dev), torch.as_tensor(vdes, device=dev),
-                           policy_update=self._load_update(policy_path))
+                           ps, tr, policy_update=self._load_update(policy_path),
+                           force_windows=fw)
         T = out.state44.shape[1]
         keep_d = (out.valid > 0.5) & (out.is_expert > 0.5)
         n_steps = int(out.valid.sum())

@@ -19,7 +19,9 @@ per control step: MPC torque (feed-forward + joint PD, clipped), the 44-dim
 dataset row recorded before the plant step, in SafeDAgger mode the policy's
 torque (``network.ServedPolicy``, by its route) and the hysteresis switch, the action encoded as
 a PD target, the scheduled base push, the plant step on per-environment
-terrain; at the end of each interval the fall test freezes ``valid``.
+terrain and payload; at the end of each interval the fall test freezes
+``valid``. The controller's model is the nominal spec whatever the plant
+carries (model-plant mismatch, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -87,8 +89,10 @@ def make_batched_mpc_rollout(
     Flax-layout variables dict) and norm stats for one call.
     ``terrain`` (``randomize.TerrainParams``) gives per-env ground height
     and contact parameters; ``force_windows`` (B, 5) per-env base pushes
-    [start_step, end_step, fx, fy, fz]. A per-env ``plant_spec`` (payload
-    randomization) is not ported and raises."""
+    [start_step, end_step, fx, fy, fz]. ``plant_spec`` (from
+    ``randomize.randomize_payload``: ``mass`` (B, 18), ``com`` (B, 18, 3))
+    gives each env's plant its own payload; the controller keeps the
+    nominal model. Without it every plant is the nominal spec."""
     dev = resolve_device(device)
     spec = spec.to(dev)
     gait, opt, cost = get_quadruped_config(gait_name, spec.name)
@@ -132,13 +136,16 @@ def make_batched_mpc_rollout(
 
     def fn(x0, v_des, plant_spec=None, terrain=None, policy_update=None,
            force_windows=None) -> RolloutBatch:
-        if plant_spec is not None:
-            raise NotImplementedError(
-                "per-env payload randomization (randomize_payload) is not ported "
-                "(ROADMAP Queue 1, 'Batched datagen, the rest')")
         x0 = torch.as_tensor(x0, **f32)
         v_des = torch.as_tensor(v_des, **f32)
         B, T = x0.shape[0], n_intervals * steps
+        if plant_spec is None:
+            plant_spec = spec
+        else:
+            plant_spec = plant_spec.to(dev)
+            if plant_spec.batch_shape not in ((), (B,)):
+                raise ValueError(f"plant_spec carries {tuple(plant_spec.batch_shape)} "
+                                 f"payloads for {B} envs")
         if terrain is None:
             terrain = TerrainParams(
                 ground_height=torch.zeros(B, **f32),
@@ -225,8 +232,8 @@ def make_batched_mpc_rollout(
                 out.q[:, t], out.v[:, t], out.state44[:, t] = q, v, s44
                 out.action[:, t], out.tau[:, t] = action, tau
                 out.is_expert[:, t] = mode_new.to(torch.float32)
-                st = device_sim.step(spec, st, tau, terrain.contact, sim_dt, f_ext=f_ext,
-                                     ground_height=terrain.ground_height)
+                st = device_sim.step(plant_spec, st, tau, terrain.contact, sim_dt,
+                                     f_ext=f_ext, ground_height=terrain.ground_height)
                 mode = mode_new
                 stepc += 1
             x = torch.cat([st.q, st.v], dim=1)

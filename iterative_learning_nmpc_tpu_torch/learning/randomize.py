@@ -1,18 +1,26 @@
-"""Per-environment terrain and push schedules for batched datagen.
+"""Domain randomization for batched datagen: per-environment payloads,
+terrain and push schedules ("terrain/payload randomization, sharded
+aggregation").
 
 Counterpart of ``iterative_learning_nmpc_tpu/learning/randomize.py`` with
 an explicit ``torch.Generator`` (a CPU generator: the samples are drawn on
 the CPU and moved to ``device``, so one seed gives the same numbers on any
-device). Payload randomization (``randomize_payload``) is not ported: it
-needs a per-environment mass and CoM through the port's dynamics.
+device). A payload is a spec whose ``mass`` (B, 18) and ``com`` (B, 18, 3)
+carry the batch (``payload_spec_axes``); the port's dynamics and plant
+broadcast it against the state's batch, where the JAX package maps its
+spec with ``jax.vmap``. ``make_batched_mpc_rollout`` gives such a spec to
+the plant alone: the controller's model stays nominal (model-plant
+mismatch by design).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Tuple
 
 import torch
 
 from ..device import resolve_device
+from ..robots.spec import _TENSOR_FIELDS, PAYLOAD_FIELDS, RobotSpec
 from ..sim.device_sim import ContactParams, default_contact_params
 
 
@@ -23,6 +31,43 @@ class TerrainParams(NamedTuple):
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
     return lo + (hi - lo) * torch.rand(shape, generator=gen)
+
+
+def payload_spec(spec: RobotSpec, extra, shift) -> RobotSpec:
+    """The nominal ``spec`` with a payload per environment: ``extra`` (B,)
+    kg added to the trunk (body 5), whose CoM moves in x and y by ``shift``
+    (B, 2) m weighted by the payload's share extra / (m_trunk + extra)."""
+    extra = torch.as_tensor(extra, dtype=spec.mass.dtype, device=spec.device)
+    shift = torch.as_tensor(shift, dtype=spec.com.dtype, device=spec.device)
+    n = extra.shape[0]
+    mass = spec.mass.expand((n,) + spec.mass.shape).clone()
+    mass[:, 5] += extra
+    com = spec.com.expand((n,) + spec.com.shape).clone()
+    w_extra = (extra / (spec.mass[5] + extra))[:, None]
+    com[:, 5, :2] += w_extra * shift
+    return dataclasses.replace(spec, mass=mass, com=com)
+
+
+def randomize_payload(
+    spec: RobotSpec,
+    gen: torch.Generator,
+    n: int,
+    mass_range: Tuple[float, float] = (0.0, 3.0),
+    com_shift: float = 0.03,
+) -> RobotSpec:
+    """A spec with ``n`` per-env payloads on ``spec``'s device: the extra
+    trunk mass uniform in ``mass_range``, the CoM shift uniform in
+    +-``com_shift`` in x and y (``payload_spec``)."""
+    extra = _uniform(gen, (n,), *mass_range)
+    shift = _uniform(gen, (n, 2), -com_shift, com_shift)
+    return payload_spec(spec, extra, shift)
+
+
+def payload_spec_axes(spec: RobotSpec) -> RobotSpec:
+    """Which fields of a payload spec carry the batch, in the JAX package's
+    ``in_axes`` form: 0 for ``mass`` and ``com``, None for every other."""
+    return dataclasses.replace(spec, **{f: (0 if f in PAYLOAD_FIELDS else None)
+                                        for f in _TENSOR_FIELDS})
 
 
 def randomize_terrain(

@@ -6,9 +6,15 @@ function takes tensors with any leading batch dims: q, v, a (..., 18),
 f_ext_feet (..., 4, 3). The four legs, structurally identical 3-revolute
 chains, are one more broadcast dim of size 4. World-frame Newton-Euler in
 the Euler chart; gravity enters as an upward base acceleration.
+
+A spec with a per-environment payload (``mass`` (B, 18), ``com`` (B, 18,
+3)) broadcasts its batch against the state's leading dims, aligned on the
+right, as the JAX package's functions do under ``jax.vmap`` with
+``payload_spec_axes``; a nominal spec computes exactly as before.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -30,8 +36,9 @@ GRAVITY = 9.81
 def _leg_arrays(spec: RobotSpec):
     jp = spec.joint_pos[6:].reshape(4, 3, 3)
     ax = spec.joint_axis[6:].reshape(4, 3, 3)
-    m = spec.mass[6:].reshape(4, 3)
-    com = spec.com[6:].reshape(4, 3, 3)
+    lead = spec.batch_shape
+    m = spec.mass[..., 6:].reshape(lead + (4, 3))
+    com = spec.com[..., 6:, :].reshape(lead + (4, 3, 3))
     Ic = spec.inertia[6:].reshape(4, 3, 3, 3)
     return jp, ax, m, com, Ic
 
@@ -128,11 +135,11 @@ def rnea(spec: RobotSpec, q: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
         w_k = w_p + a_w * qd_legs[..., k:k + 1]
         dw_k = (dw_p + a_w * qdd_legs[..., k:k + 1]
                 + cross(w_p, a_w * qd_legs[..., k:k + 1]))
-        c_w = matvec(R_k, com_legs[:, k])
+        c_w = matvec(R_k, com_legs[..., k, :])
         x_c = p_k + c_w
         a_c = dv_k + cross(dw_k, c_w) + cross(w_k, cross(w_k, c_w))
         I_w = R_k @ Ic_legs[:, k] @ R_k.transpose(-1, -2)
-        F = m_legs[:, k:k + 1] * a_c
+        F = m_legs[..., k:k + 1] * a_c
         Nm = matvec(I_w, dw_k) + cross(w_k, matvec(I_w, w_k))
         Fs.append(F)
         Ms.append(Nm + cross(x_c, F))
@@ -155,8 +162,8 @@ def rnea(spec: RobotSpec, q: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
     F_legs = sum(Fs).sum(-2)
     M_legs = sum(Ms).sum(-2)
 
-    m_t = spec.mass[5]
-    c_w = matvec(R_b, spec.com[5])
+    m_t = spec.mass[..., 5:6]
+    c_w = matvec(R_b, spec.com[..., 5, :])
     x_c = p_b + c_w
     a_c = dv_b + cross(dw_b, c_w) + cross(w_b, cross(w_b, c_w))
     I_w = R_b @ spec.inertia[5] @ R_b.transpose(-1, -2)
@@ -180,6 +187,10 @@ def mass_matrix(spec: RobotSpec, q: torch.Tensor) -> torch.Tensor:
     """Joint-space inertia M(q), (..., 18, 18): one RNEA per unit
     acceleration at zero velocity and zero gravity, symmetrised."""
     nv = q.shape[-1]
+    if spec.batch_shape:
+        # the unit accelerations are one more leading dim of the state
+        spec = dataclasses.replace(spec, mass=spec.mass.unsqueeze(-2),
+                                   com=spec.com.unsqueeze(-3))
     eye = torch.eye(nv, dtype=q.dtype, device=q.device)
     qe = q.unsqueeze(-2).expand(q.shape[:-1] + (nv, nv))
     cols = rnea(spec, qe, torch.zeros_like(qe), eye.expand_as(qe), gravity=0.0)
@@ -195,14 +206,13 @@ def com_position(spec: RobotSpec, q: torch.Tensor) -> torch.Tensor:
     """Whole-body centre of mass (..., 3): the trunk (body 5) and the 12
     leg links at their FK poses."""
     Rs, ps, _, _ = _leg_frames(spec, q)
-    com_legs = spec.com[6:].reshape(4, 3, 3)
-    m_legs = spec.mass[6:].reshape(4, 3)
-    x_trunk = q[..., :3] + matvec(ypr_to_matrix(q[..., 3:6]), spec.com[5])
-    acc = spec.mass[5] * x_trunk
+    _, _, m_legs, com_legs, _ = _leg_arrays(spec)
+    x_trunk = q[..., :3] + matvec(ypr_to_matrix(q[..., 3:6]), spec.com[..., 5, :])
+    acc = spec.mass[..., 5:6] * x_trunk
     for k in range(3):
-        x_k = ps[k] + matvec(Rs[k], com_legs[:, k])           # (..., 4, 3)
-        acc = acc + (m_legs[:, k, None] * x_k).sum(-2)
-    return acc / spec.mass[5:].sum()
+        x_k = ps[k] + matvec(Rs[k], com_legs[..., k, :])      # (..., 4, 3)
+        acc = acc + (m_legs[..., k, None] * x_k).sum(-2)
+    return acc / spec.mass[..., 5:].sum(-1, keepdim=True)
 
 
 def forward_dynamics(spec: RobotSpec, q, v, tau_joints, f_ext_feet=None) -> torch.Tensor:

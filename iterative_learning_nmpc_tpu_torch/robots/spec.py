@@ -5,6 +5,11 @@ are identical: the floating base is 6 explicit DOFs (x, y, z prismatic,
 then yaw, pitch, roll revolute), so ``q[:6] = [x, y, z, yaw, pitch, roll]``
 and ``v = dq/dt``; joints follow in the order FL, FR, RL, RR (hip, thigh,
 calf); DOF 5 carries the trunk inertia, DOFs 6.. the leg links.
+
+A spec may carry a per-environment payload: ``mass`` of shape (B, nv) and
+``com`` of shape (B, nv, 3), every other field nominal
+(``learning.randomize.randomize_payload``). The dynamics broadcast those
+leading dims against the state's (``models/dynamics.py``).
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ FEET_ORDER = ("FL", "FR", "RL", "RR")
 _TENSOR_FIELDS = ("joint_axis", "joint_pos", "mass", "com", "inertia",
                   "foot_offset", "foot_radius", "torque_limit", "q_home",
                   "joint_limits")
+# the fields a payload-randomized spec batches (JAX ``payload_spec_axes``)
+PAYLOAD_FIELDS = ("mass", "com")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +61,27 @@ class RobotSpec:
     def device(self) -> torch.device:
         return self.mass.device
 
+    @property
+    def batch_shape(self) -> torch.Size:
+        """The leading dims of a per-environment payload, () for a nominal
+        spec."""
+        return self.mass.shape[:-1]
+
+    def batched_fields(self) -> Tuple[str, ...]:
+        """The fields that carry the batch: ``PAYLOAD_FIELDS`` for a
+        payload-randomized spec, none for a nominal one."""
+        return PAYLOAD_FIELDS if len(self.batch_shape) else ()
+
     def to(self, device) -> "RobotSpec":
         return dataclasses.replace(
             self, **{f: getattr(self, f).to(device) for f in _TENSOR_FIELDS})
+
+    def take(self, index) -> "RobotSpec":
+        """The spec of the environments ``index`` selects (an int, a slice
+        or an index tensor on the batch dim); a nominal spec is returned as
+        it is."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f)[index] for f in self.batched_fields()})
 
 
 def _base_dofs():

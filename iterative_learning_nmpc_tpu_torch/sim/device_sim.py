@@ -48,7 +48,11 @@ _GO2_TOTAL_MASS = 15.02   # the mass the default parameters were tuned at
 def contact_params_for(spec: RobotSpec, dtype=torch.float32, device=None) -> ContactParams:
     """Mass-scaled contact parameters: stiffness and damping scale with the
     robot's total mass, which keeps the penetration depth and the explicit
-    stability margins unchanged."""
+    stability margins unchanged. The spec is the nominal one: a payload
+    spec's masses would sum over its environments."""
+    if spec.batch_shape:
+        raise ValueError("contact parameters scale with the nominal spec's mass; "
+                         "a payload spec carries one mass per environment")
     scale = float(spec.mass.detach().cpu().numpy().sum()) / _GO2_TOTAL_MASS
     base = default_contact_params(dtype, device)
     return dataclasses.replace(base, stiffness=base.stiffness * scale,
@@ -93,7 +97,9 @@ def step(spec: RobotSpec, state: SimState, tau_joints, cp: ContactParams,
     optional world force on the base, mapped onto the prismatic coordinates.
     Penalty contact at quadruped stiffness needs the sub-steps to stay free
     of chatter. ``cp`` and ``ground_height`` may be per environment, as in
-    contact_forces."""
+    contact_forces, and so may ``spec``'s payload (``mass`` (B, 18), ``com``
+    (B, 18, 3)): the controller's model stays nominal while each
+    environment's plant carries its own."""
     tau = torch.clamp(tau_joints, -spec.torque_limit, spec.torque_limit)
     h = dt / substeps
     q, v, t = state
@@ -101,8 +107,9 @@ def step(spec: RobotSpec, state: SimState, tau_joints, cp: ContactParams,
         f_c = contact_forces(spec, q, v, cp, ground_height)
         a = dyn.forward_dynamics(spec, q, v, tau, f_ext_feet=f_c)
         if f_ext is not None:
-            a = torch.cat([a[..., :3] + f_ext[..., :3] / spec.mass.sum(), a[..., 3:]],
-                          dim=-1)
+            # each environment's own total mass (a payload spec's (B, 1))
+            a = torch.cat([a[..., :3] + f_ext[..., :3] / spec.mass.sum(-1, keepdim=True),
+                           a[..., 3:]], dim=-1)
         v = v + h * a
         q = q + h * v
         t = t + h

@@ -24,6 +24,8 @@ from iterative_learning_nmpc_tpu_torch.learning import dagger as tdag
 from iterative_learning_nmpc_tpu_torch.learning import network as tnet
 from iterative_learning_nmpc_tpu_torch.learning import ondevice as tond
 from iterative_learning_nmpc_tpu_torch.learning.database import Database as TDatabase
+from iterative_learning_nmpc_tpu_torch.learning.randomize import (
+    randomize_payload, randomize_terrain, sample_force_windows)
 from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec as torch_go2
 from iterative_learning_nmpc_tpu_torch.learning.train import trained_gaps
 from test_torch_train import PARAM_ATOL
@@ -55,8 +57,9 @@ def seeded_rows(valid=True):
 
 class StubRollout:
     """A make_batched_mpc_rollout stand-in: records the factory's keywords
-    and each call's x0, v_des and policy_update; returns ``rows`` as the
-    package's RolloutBatch (numpy for JAX, tensors for the port)."""
+    and each call's x0, v_des, policy_update, plant spec, terrain and force
+    windows; returns ``rows`` as the package's RolloutBatch (numpy for JAX,
+    tensors for the port)."""
 
     def __init__(self, rows, port):
         self.rows, self.port, self.factory_kw, self.calls = rows, port, None, []
@@ -64,9 +67,12 @@ class StubRollout:
     def __call__(self, spec, **kw):
         self.factory_kw = kw
 
-        def fn(x0, v_des, *args, policy_update=None, **kw2):
+        def fn(x0, v_des, plant_spec=None, terrain=None, policy_update=None,
+               force_windows=None):
             npy = (lambda t: t.cpu().numpy()) if self.port else np.asarray
-            self.calls.append(dict(x0=npy(x0), v_des=npy(v_des), policy_update=policy_update))
+            self.calls.append(dict(x0=npy(x0), v_des=npy(v_des), policy_update=policy_update,
+                                   plant_spec=plant_spec, terrain=terrain,
+                                   force_windows=force_windows))
             if self.port:
                 return tond.RolloutBatch(**{k: torch.as_tensor(v) for k, v in self.rows.items()})
             return jond.RolloutBatch(**self.rows)
@@ -191,25 +197,54 @@ def test_retrained_policy_matches_jax(stubbed):
 
 def test_no_expert_rows_and_randomize(tmp_path, monkeypatch):
     """A data step that keeps no row returns the previous dataset, as the
-    JAX loop does; the constructor takes the JAX one's arguments, less the
-    domain-randomisation ones (per-environment payloads are not ported),
-    plus ``device``."""
+    JAX loop does; the constructor takes the JAX one's arguments plus
+    ``device``. With ``randomize`` each data step draws its payloads,
+    terrain and pushes from generators seeded as the JAX keys are (cfg.seed
+    + 7919 / 104729 / 1299709 times the iteration), the payload and terrain
+    kwargs passed on, the first half of the envs push-free; without it the
+    rollout gets none."""
     payload = random_policy_payload(2, 32, seed=4)
     policy0 = tnet.save_policy(str(tmp_path / "p.pkl"), payload["variables"], None,
                                payload["net_config"])
-    monkeypatch.setattr(tond, "make_batched_mpc_rollout",
-                        StubRollout(seeded_rows(valid=False), port=True))
+    stub = StubRollout(seeded_rows(valid=False), port=True)
+    monkeypatch.setattr(tond, "make_batched_mpc_rollout", stub)
     spec = torch_go2(device="cpu")
     pipe = tdag.OnDeviceSafeDagger(spec, tdag.SafeDaggerConfig(**config(tmp_path)), policy0,
                                    batch=B, device="cpu")
     assert pipe.collect(policy0, GOAL, None, "t0") is None
     assert pipe.collect(policy0, GOAL, "prev.npz", "t1") == "prev.npz"
+    for c in stub.calls:
+        assert c["plant_spec"] is None and c["terrain"] is None and c["force_windows"] is None
     params = [(p.name, p.default) for p in
               inspect.signature(tdag.OnDeviceSafeDagger).parameters.values()]
     want = [(p.name, p.default) for p in
-            inspect.signature(jdag.OnDeviceSafeDagger).parameters.values()
-            if p.name not in ("randomize", "payload_kwargs", "terrain_kwargs")]
+            inspect.signature(jdag.OnDeviceSafeDagger).parameters.values()]
     assert params == want + [("device", None)]
+
+    cfg = tdag.SafeDaggerConfig(**config(tmp_path / "rand", seed=3))
+    pk, tk = dict(mass_range=(1.0, 2.0)), dict(friction_range=(0.6, 0.7))
+    pipe = tdag.OnDeviceSafeDagger(spec, cfg, policy0, batch=B, randomize=True,
+                                   payload_kwargs=pk, terrain_kwargs=tk, device="cpu")
+    stub.calls.clear()
+    for it in range(2):
+        pipe.collect(policy0, GOAL, None, f"r{it}")
+    gen = lambda k, it: torch.Generator().manual_seed(3 + k * it)
+    for it, c in enumerate(stub.calls):
+        ps = randomize_payload(spec, gen(7919, it), B, **pk)
+        tr = randomize_terrain(gen(104729, it), B, device="cpu", **tk)
+        fw = sample_force_windows(gen(1299709, it), B, 2 * 40, device="cpu")
+        assert torch.equal(c["plant_spec"].mass, ps.mass)
+        assert torch.equal(c["plant_spec"].com, ps.com)
+        assert c["plant_spec"].joint_pos is pipe.spec.joint_pos
+        assert torch.equal(c["terrain"].ground_height, tr.ground_height)
+        mu = c["terrain"].contact.friction_mu
+        assert torch.equal(mu, tr.contact.friction_mu) and (mu >= 0.6).all() and (mu <= 0.7).all()
+        assert ((c["plant_spec"].mass[:, 5] - spec.mass[5]) >= 1.0).all()
+        assert (c["force_windows"][: B // 2] == 0).all()
+        assert torch.equal(c["force_windows"][B // 2:], fw[B // 2:])
+        assert (c["force_windows"][B // 2:, 1] > c["force_windows"][B // 2:, 0]).all()
+    # the iterations draw anew
+    assert not torch.equal(stub.calls[0]["plant_spec"].mass, stub.calls[1]["plant_spec"].mass)
 
 
 def test_real_rollout_loop_on_cpu(tmp_path):

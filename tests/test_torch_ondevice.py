@@ -21,7 +21,7 @@ from iterative_learning_nmpc_tpu.robots.go2 import go2_spec as jax_go2
 from iterative_learning_nmpc_tpu_torch.learning.network import ServedPolicy, load_policy
 from iterative_learning_nmpc_tpu_torch.learning.ondevice import make_batched_mpc_rollout
 from iterative_learning_nmpc_tpu_torch.learning.randomize import (
-    TerrainParams, randomize_terrain, sample_force_windows)
+    TerrainParams, randomize_payload, randomize_terrain, sample_force_windows)
 from iterative_learning_nmpc_tpu_torch.mpc.interpolate import hermite_interp
 from iterative_learning_nmpc_tpu_torch.ops import policy_pd as tpp
 from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec as torch_go2
@@ -101,7 +101,8 @@ def test_safedagger_rollout_matches_jax(spec):
 def test_expert_mode_and_a_push_on_one_env(spec, standing):
     """Without a policy every row is the expert's. Two identical envs, the
     second pushed sideways (150 N over steps 10-30): identical rows before
-    the push, the pushed env alone moved. A per-env plant spec raises."""
+    the push, the pushed env alone moved. A plant spec takes one payload
+    per env."""
     rollout = make_batched_mpc_rollout(spec, n_intervals=1, device="cpu")
     fw = np.zeros((2, 5), np.float32)
     fw[1] = [10.9, 30.2, 0.0, 150.0, 0.0]         # int32 truncation: 10..29
@@ -114,8 +115,9 @@ def test_expert_mode_and_a_push_on_one_env(spec, standing):
     # measured: the pushed env 3.7 mm further sideways, the other within 0.3 mm
     dy = q[1, -1, 1] - q[0, -1, 1]
     assert dy > 2e-3 and abs(q[0, -1, 1] - standing[0, 1]) < 1e-3, (dy, q[0, -1, 1])
-    with pytest.raises(NotImplementedError, match="randomize_payload"):
-        rollout(standing, v_des, plant_spec=spec)
+    with pytest.raises(ValueError, match=r"\(3,\) payloads for 2 envs"):
+        rollout(standing, v_des,
+                plant_spec=randomize_payload(spec, torch.Generator().manual_seed(0), 3))
 
 
 def test_policy_update_serves_new_weights(spec, standing):
