@@ -121,7 +121,7 @@ rows, and the on-device SafeDAgger loop). Phases, one line each:
      "kernel" and kernel 8 on phase 10's observations within its bound of
      the net's eval-mode forward,
  21. the on-device SafeDAgger loop (learning/dagger.py) at full width: a
-     seeded untrained 3 x 512 BatchNorm policy, 256 envs, 0.4 s (10
+     seeded untrained 3 x 512 BatchNorm policy, 256 envs, 0.2 s (5
      intervals), delay 20, MPC latched >= 60, one goal (0.3, 0, 0), 2
      iterations of (collect -> train: 3 epochs, batch 256, lr 1e-3), the
      counters set to 0 before each collect and read after it (kernels 1-3
@@ -171,6 +171,26 @@ rows, and the on-device SafeDAgger loop). Phases, one line each:
      gates; its counters read alone, kernels 1-3 launched); the datagen and
      DAgger CLIs (examples/) as subprocesses, their npz read back by
      Database.load, their launches parsed from their output.
+ 27. the host controllers on the card, against
+     tests/data/go2_host_loop_golden.npz (the JAX package on the CPU,
+     scripts/make_torch_host_loop_golden.py), each part with the counters
+     set to 0 before it and read after it: (a) PolicyController (the
+     shipped policy, served at B=1: kernel 8 once a control step) at 0.15
+     m/s for 1 s on the device plant, coupled through a simulator stand-in
+     (PlantStandIn: the spec, the foot geoms and their positions from the
+     plant state), upright, every 100th action held to the kernel's CPU twin
+     on the same input within phase 10's bound, ms a control step and
+     inference_ms; (b) CombinedController (that policy and LocomotionMPC,
+     delay 100 steps, the MPC latched >= 200) for 1 s with the golden's
+     push, which trips the monitor in the JAX run: the expert takes over,
+     no fall, kernels 1, 2, 3, 7 and 8 launched, the switch times beside
+     the JAX run's; (c) Go2's push recovery (40 N / 20 N over 0.7-0.9 s,
+     1.6 s) and turning (0.2 m/s, w_yaw 0.4, 2 s) with LocomotionMPC on the
+     device plant: the JAX package's tests/test_closed_loop.py gates (the
+     JAX controller on the JAX device plant passes them), the turn's final
+     yaw within TURN_YAW_TOL of the JAX run's; (d) examples/run_mpc.py
+     --mode traj_opt and --mode open_loop --sim_time 0.5 as subprocesses,
+     their launches parsed from their output ("27 cli").
 
 It then prints one JSON line with the kernels' results (each with its
 bound: the larger of its operations over the card's fp32 rate, bf16
@@ -229,7 +249,9 @@ NODE_B, NODE_N, NODE_B_SWEEP, NODE_REL = 1024, 25, 256, 1e-5
 # the training side (phases 20-21): BC epochs on the datagen's rows, the
 # rows of the card-against-CPU epoch, and the SafeDAgger loop's run
 BC_EPOCHS, BC_CMP_ROWS, BC_CMP_SEEDS = 3, 8192, 4
-DAGGER_SIM_S, DAGGER_ITERS, DAGGER_EPOCHS, DAGGER_BATCH, DAGGER_LR = 0.4, 2, 3, 256, 1e-3
+# (DAGGER_SIM_S was 0.4 s until phase 27 joined: cut to keep the script
+# near 750 s on the slower hosts, 89.2 s of phase 21's wall at 0.4 s)
+DAGGER_SIM_S, DAGGER_ITERS, DAGGER_EPOCHS, DAGGER_BATCH, DAGGER_LR = 0.2, 2, 3, 256, 1e-3
 # card against CPU after one epoch (7 steps), with the split and batches of
 # each of BC_CMP_SEEDS seeds: per-step losses (fp32 sums in another order)
 # and parameters (an L1 kink, an output within rounding of its target,
@@ -272,6 +294,21 @@ RAND_VALID_MARGIN = 8 / 256
 PLANT_Q_TOL, PLANT_V_TOL = 1e-4, 1e-3
 CLI_B, CLI_DAGGER_B, CLI_S, CLI_TIMEOUT_S = 16, 8, 0.08, 300
 RATES = {}                 # rows/s by path, for the phases that compare them
+# phase 27: the host controllers on the card. PolicyController alone at
+# HOST_V for HOST_S (its every HOST_CHECK-th action held to the CPU twin);
+# CombinedController (delay and latch of the golden's runs) for HOST_S with
+# the golden's push; Go2's push recovery and turning (the JAX package's
+# tests/test_closed_loop.py:33-59 scenarios) on the device plant, held to
+# the JAX controller's runs on the JAX device plant
+# (tests/data/go2_host_loop_golden.npz, scripts/make_torch_host_loop_golden.py);
+# the final yaw of the turn within TURN_YAW_TOL of the JAX run's (1.0519
+# rad): three times the widest reading of the port, 1.0695 in two runs on an
+# H100 80GB HBM3 at 700 W (equal to every digit) and 1.0839 on the CPU
+HOST_V, HOST_S, HOST_CHECK = 0.15, 1.0, 100
+PUSH_S, PUSH = 1.6, ((0.7, 0.9, (40.0, 20.0, 0.0)),)
+TURN_S, TURN_V, TURN_W = 2.0, 0.2, 0.4
+TURN_YAW_TOL = 0.1
+OPEN_LOOP_S = 0.5
 
 
 def fail(msg: str) -> None:
@@ -412,8 +449,8 @@ def datagen_batch(q0, n, rng):
 
 
 class PlantData:
-    """What LocomotionMPC.compute_torques_dof reads: time, qpos, qvel in
-    MuJoCo layout."""
+    """What a controller's compute_torques_dof reads: time, qpos, qvel in
+    MuJoCo layout (and, for PlantStandIn, geom_xpos)."""
     time, qpos, qvel = 0.0, None, None
 
 
@@ -1501,13 +1538,15 @@ def load_golden(name):
     return np.load(os.path.join(ROOT, "tests", "data", f"{name}_golden.npz"))
 
 
-def plant_loop(dev, spec, mpc, q0, seconds, pushes=()):
-    """``mpc`` on the device plant for ``seconds`` at 1 kHz from (q0, 0),
-    through ``compute_torques_dof`` as phase 8 couples them, with the
+def plant_loop(dev, spec, mpc, q0, seconds, pushes=(), standin=None):
+    """``mpc`` (any controller with ``compute_torques_dof`` and
+    ``torques_dof``) on the device plant for ``seconds`` at 1 kHz from (q0,
+    0), through ``compute_torques_dof`` as phase 8 couples them, with the
     plant's step one CUDA graph (``device_sim.graphed``); ``pushes`` are
     (start, end, (3,) world force on the base) windows, as the MuJoCo
-    simulator's force schedule. Returns the chart states (steps + 1, 18)
-    and the wall."""
+    simulator's force schedule; ``standin`` (a ``PlantStandIn``) is given
+    each state before the controller reads it. Returns the chart states
+    (steps + 1, 18) and the wall."""
     import numpy as np
     import torch
 
@@ -1515,29 +1554,32 @@ def plant_loop(dev, spec, mpc, q0, seconds, pushes=()):
     from iterative_learning_nmpc_tpu_torch.sim import device_sim
 
     cp = device_sim.contact_params_for(spec, device=dev)
+    dt, nu = getattr(mpc, "sim_dt", 1e-3), spec.nu
 
     def one(q, v, t, tau, f):
-        return tuple(device_sim.step(spec, device_sim.SimState(q, v, t), tau, cp, mpc.sim_dt,
+        return tuple(device_sim.step(spec, device_sim.SimState(q, v, t), tau, cp, dt,
                                      f_ext=f))
 
     q = torch.as_tensor(np.asarray(q0, np.float32), device=dev)[None]
     v, t = torch.zeros_like(q), torch.zeros(1, device=dev)
-    tau, f = torch.zeros(1, mpc.nu, device=dev), torch.zeros(1, 3, device=dev)
+    tau, f = torch.zeros(1, nu, device=dev), torch.zeros(1, 3, device=dev)
     run = device_sim.graphed(one, q, v, t, tau, f)
-    n = int(round(seconds / mpc.sim_dt))
+    n = int(round(seconds / dt))
     qs, data = np.zeros((n + 1, 18)), PlantData()
     t0 = time.perf_counter()
     for i in range(n):
         x = torch.cat([q, v], -1)[0].cpu().numpy().astype(np.float64)
         qs[i] = x[:18]
         data.qpos, data.qvel = tnp.convert_to_mujoco(x[:18], x[18:])
-        data.time = i * mpc.sim_dt
+        data.time = i * dt
+        if standin is not None:
+            standin.update(x[:18])
         mpc.compute_torques_dof(data)
         push = np.zeros((1, 3), np.float32)
         for a, b, force in pushes:
             if a <= data.time < b:
                 push[0] += force
-        q, v, t = run(q, v, t, torch.as_tensor(mpc.torques_dof[None, -mpc.nu:],
+        q, v, t = run(q, v, t, torch.as_tensor(mpc.torques_dof[None, -nu:],
                                                dtype=torch.float32).to(dev),
                       torch.as_tensor(push).to(dev))
     qs[n] = q[0].cpu().numpy()
@@ -2273,6 +2315,235 @@ def solo12_gates(loops) -> None:
             fail(f"solo12 {name}: outside the reference run's gates")
 
 
+class PlantStandIn:
+    """What ``PolicyController`` reads of a simulator, from the device
+    plant's state: ``spec``, ``foot_geoms`` (FL, FR, RL, RR) and
+    ``data.geom_xpos`` (the feet's world points, the foot geoms' centres,
+    by the dynamics' FK on the host in float32)."""
+
+    foot_geoms = {0: "FL", 1: "FR", 2: "RL", 3: "RR"}
+
+    def __init__(self, spec):
+        import numpy as np
+
+        self.spec, self._host = spec, spec.to("cpu")
+        self.data = PlantData()
+        self.data.geom_xpos = np.zeros((4, 3))
+
+    def update(self, q):
+        import numpy as np
+        import torch
+
+        from iterative_learning_nmpc_tpu_torch.models.dynamics import foot_positions
+
+        self.data.geom_xpos = foot_positions(
+            self._host, torch.as_tensor(q, dtype=torch.float32)).numpy().astype(np.float64)
+
+
+class CheckedPolicy:
+    """A ``PolicyController`` whose every ``every``-th action is held to the
+    kernel's plain twin on the CPU at the same input (phase 10's bound:
+    |d act| <= 2e-5 + 2e-4 |act|); the twin's calls launch nothing."""
+
+    diverged = False
+
+    def __init__(self, pol, every):
+        self.pol, self.every, self.k, self.errs = pol, every, 0, []
+        self.host = [(W.cpu(), b.cpu()) for W, b in pol.served.layers]
+
+    @property
+    def torques_dof(self):
+        return self.pol.torques_dof
+
+    def compute_torques_dof(self, data):
+        import numpy as np
+        import torch
+
+        from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd_plain
+
+        self.pol.compute_torques_dof(data)
+        if self.k % self.every == 0:
+            T = lambda a: torch.as_tensor(np.asarray(a, np.float32))[None]
+            ap, _ = policy_pd_plain(self.host, self.pol.kp, self.pol.kd,
+                                    T(self.pol.policy_input(data)), T(data.qpos[7:]),
+                                    T(data.qvel[6:]))
+            ap = ap[0].numpy().astype(np.float64)
+            d = np.abs(self.pol.last_action - ap)
+            self.errs.append((float(d.max()), bool((d <= 2e-5 + 2e-4 * np.abs(ap)).all())))
+        self.k += 1
+
+
+def switches(mode_log, dt=1e-3):
+    """The times (s) at which a mode log changes mode (the first entry
+    against "policy")."""
+    import numpy as np
+
+    m = np.asarray(mode_log, np.int8)
+    return np.flatnonzero(np.diff(np.concatenate([[0], m]))) * dt
+
+
+def host_loop_phase(dev, card, kernels) -> dict:
+    """Phase 27: the host controllers (``learning/policy_controller.py``,
+    ``learning/combined_controller.py``), Go2's push recovery and turning,
+    and the MPC CLI, on the card. Returns the launches by part."""
+    import numpy as np
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch.learning.combined_controller import (
+        CombinedController)
+    from iterative_learning_nmpc_tpu_torch.learning.policy_controller import PolicyController
+    from iterative_learning_nmpc_tpu_torch.mpc.config import get_quadruped_config
+    from iterative_learning_nmpc_tpu_torch.mpc.controller import LocomotionMPC
+    from iterative_learning_nmpc_tpu_torch.ops.policy_pd import policy_pd_dense
+    from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec
+
+    t_phase = time.perf_counter()
+    g = load_golden("go2_host_loop")
+    spec = go2_spec(device=dev)
+    q0 = g["plant_q0"]
+    nom = get_quadruped_config("trot", spec.name)[0].nom_height
+    path = os.path.join(ROOT, "assets", ARTIFACT)
+    v_pol = np.array([HOST_V, 0.0, 0.0])
+    total = dict.fromkeys((k.__name__ for k in kernels), 0)
+
+    def add(counts):
+        for k, c in counts.items():
+            total[k] += c
+
+    # (a) PolicyController at B=1 on the card, kernel 8 each control step
+    standin = PlantStandIn(spec)
+    pol = PolicyController(standin, path, v_des=v_pol, device=dev)
+    checked = CheckedPolicy(pol, HOST_CHECK)
+    zero(kernels)
+    dense0 = policy_pd_dense.calls
+    qs, wall = plant_loop(dev, spec, checked, q0, HOST_S, standin=standin)
+    launches = read(kernels)
+    add(launches)
+    steps = int(round(HOST_S / 1e-3))
+    served = launches["policy_pd"] if pol.served.route == "kernel" else (
+        policy_pd_dense.calls - dense0)
+    inf = np.asarray(pol.inference_ms)
+    t_fall = fall_time(qs, nom)
+    err = max(e for e, _ in checked.errs)
+    print(f"[27 policy] PolicyController (route {pol.served.route}) at {HOST_V} m/s for "
+          f"{HOST_S} s on the device plant: fell at {t_fall} s, x {qs[-1, 0]:.4f} m, z "
+          f"{qs[:, 2].min():.4f}..{qs[:, 2].max():.4f}; {served} policy launches for {steps} "
+          f"control steps; every {HOST_CHECK}th action against the CPU twin: max |d act| "
+          f"{err:.3e} ({len(checked.errs)} checks, all within 2e-5 + 2e-4 |act| "
+          f"{all(ok for _, ok in checked.errs)}); {wall / steps * 1e3:.3f} ms a control step, "
+          f"inference_ms median {np.median(inf):.4f} p95 {np.percentile(inf, 95):.4f} "
+          f"({card})", flush=True)
+    if t_fall is not None:
+        fail(f"27 policy: the policy fell at {t_fall} s")
+    if served != steps:
+        fail(f"27 policy: {served} policy launches ({pol.served.route}) for {steps} steps")
+    if not all(ok for _, ok in checked.errs):
+        fail(f"27 policy: an action outside phase 10's bound of its twin: {checked.errs}")
+
+    # (b) CombinedController: policy + LocomotionMPC, pushed
+    pushes = tuple((float(a), float(b), tuple(float(x) for x in f))
+                   for a, b, *f in g["plant_comb_push"])
+    v_comb = np.array([float(g["plant_comb_v"]), 0.0, 0.0])
+    standin = PlantStandIn(spec)
+    mpc = LocomotionMPC(spec, gait_name="trot", solve_async=False, device=dev)
+    comb = CombinedController(standin, mpc, PolicyController(standin, path, v_des=v_comb,
+                                                             device=dev),
+                              v_des=v_comb, delay_steps=int(g["delay_steps"]),
+                              mpc_min_steps=int(g["mpc_min_steps"]))
+    comb.set_command(v_comb)
+    zero(kernels)               # after the policy's construction-time call
+    qs, wall = plant_loop(dev, spec, comb, q0, HOST_S, pushes, standin=standin)
+    mpc.close()
+    launches = read(kernels)
+    add(launches)
+    sw, t_fall = switches(comb.mode_log), fall_time(qs, nom)
+    print(f"[27 combined] CombinedController ({HOST_S} s at {v_comb[0]} m/s, pushed {pushes}, "
+          f"delay {int(g['delay_steps'])}, latch {int(g['mpc_min_steps'])}): fell at {t_fall} "
+          f"s, switches at {np.round(sw, 3).tolist()} s ({int(np.sum(comb.mode_log))} expert "
+          f"steps; the JAX run {np.round(g['plant_comb_switch'], 3).tolist()} s, "
+          f"{int(g['plant_comb_expert_steps'])} steps; without the push "
+          f"{np.round(g['plant_comb_nopush_switch'], 3).tolist()} s); x {qs[-1, 0]:.4f} m "
+          f"(JAX {g['plant_comb_qs'][-1, 0]:.4f}); {latency(mpc)}; {wall / steps * 1e3:.3f} "
+          f"ms a control step; launches {launches} ({card})", flush=True)
+    if not np.any(comb.mode_log):
+        fail("27 combined: the expert never took over")
+    if t_fall is not None or mpc.diverged:
+        fail(f"27 combined: fell at {t_fall} s or diverged ({mpc.diverged})")
+    if min(launches[k] for k in ("dyncore", "lingram", "riccati_rollout", "dynjac")) <= 0 \
+            or launches["policy_pd"] != steps:
+        fail(f"27 combined: a kernel of the path was not launched, or kernel 8 not once a "
+             f"control step: {launches}")
+
+    # (c) Go2's push recovery and turning on the device plant
+    for name, v, w, seconds, pushes in (("push", 0.0, 0.0, PUSH_S, PUSH),
+                                        ("turn", TURN_V, TURN_W, TURN_S, ())):
+        zero(kernels)
+        mpc = LocomotionMPC(spec, gait_name="trot", solve_async=False, device=dev)
+        mpc.set_command(np.array([v, 0.0, 0.0]), w)
+        qs, wall = plant_loop(dev, spec, mpc, q0, seconds, pushes)
+        mpc.close()
+        launches = read(kernels)
+        add(launches)
+        t_fall, every = fall_time(qs, nom), int(g["every"])
+        ref = g[f"{name}_qs"]
+        early = int(round(0.3 / (every * 1e-3)))
+        d_early = float(np.abs(qs[::every][:early] - ref[:early]).max())
+        yaw, yaw_ref = float(qs[-1, 3]), float(g[f"{name}_yaw"])
+        tilt = np.abs(qs[-1, 4:6])
+        print(f"[27 {name}] LocomotionMPC {seconds} s at {v} m/s, w_yaw {w}"
+              + (f", {pushes[0][2]} N over {pushes[0][0]}-{pushes[0][1]} s" if pushes else "")
+              + f": fell at {t_fall} s (JAX {g[name + '_fall']}), final z {qs[-1, 2]:.4f} "
+              f"(JAX {ref[-1, 2]:.4f}), yaw {yaw:.4f} (JAX {yaw_ref:.4f}, |d| "
+              f"{abs(yaw - yaw_ref):.4f} <= {TURN_YAW_TOL} for the turn), final |pitch|, |roll| "
+              f"{tilt[0]:.4f}, {tilt[1]:.4f}; base states over the first 0.3 s within "
+              f"{d_early:.2e} of the JAX run's; {latency(mpc)}; wall {wall:.2f} s; launches "
+              f"{launches} ({card})", flush=True)
+        if t_fall is not None or mpc.diverged or not np.isfinite(qs).all():
+            fail(f"27 {name}: fell at {t_fall} s, diverged or non-finite")
+        if min(launches[k] for k in ("dyncore", "lingram", "riccati_rollout", "dynjac")) <= 0:
+            fail(f"27 {name}: a kernel of the path was not launched: {launches}")
+        if name == "push" and not 0.2 < qs[-1, 2] < 0.4:
+            fail(f"27 push: final base height {qs[-1, 2]:.4f} outside (0.2, 0.4)")
+        if name == "turn" and not (yaw > 0.4 and (tilt < 0.3).all()
+                                   and abs(yaw - yaw_ref) <= TURN_YAW_TOL):
+            fail(f"27 turn: yaw {yaw:.4f} (JAX {yaw_ref:.4f}), tilt {tilt}")
+
+    # (d) the MPC CLI: traj_opt and a short open loop, side by side
+    mod = "iterative_learning_nmpc_tpu_torch.examples.run_mpc"
+    cmds = {"traj_opt": [sys.executable, "-m", mod, "--mode", "traj_opt", "--device", str(dev)],
+            "open_loop": [sys.executable, "-m", mod, "--mode", "open_loop", "--sim_time",
+                          str(OPEN_LOOP_S), "--device", str(dev)]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True) for k, c in cmds.items()}
+    logs = {}
+    try:
+        for k, p in procs.items():
+            logs[k] = p.communicate(timeout=CLI_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        for p in procs.values():
+            p.kill()
+            p.communicate()
+        fail(f"a run_mpc CLI ran past {CLI_TIMEOUT_S} s")
+    cli = dict.fromkeys(total, 0)
+    for k, p in procs.items():
+        if p.returncode != 0:
+            fail(f"run_mpc --mode {k} exited {p.returncode}:\n{logs[k][-3000:]}")
+        line = [ln for ln in logs[k].splitlines() if ln.startswith("launches")][-1]
+        counts = {n: int(c) for n, c in re.findall(r"(\w+) (\d+)", line.split(":", 1)[1])}
+        for n, c in counts.items():
+            cli[n] += c
+        summary = [ln for ln in logs[k].splitlines()
+                   if ln.startswith(("base z range", "|tau_ff|", "final base"))]
+        print(f"[27 cli] run_mpc --mode {k}: {'; '.join(summary)}; launches {counts}",
+              flush=True)
+        if min(counts.get(n, 0) for n in ("dyncore", "riccati_rollout", "dynjac")) <= 0:
+            fail(f"run_mpc --mode {k} did not launch kernels 1, 3 and 7: {counts}")
+    print(f"[27] CLIs {time.perf_counter() - t0:.1f} s side by side; launches {total}; phase 27 "
+          f"wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"27": total, "27 cli": cli}
+
+
 def main() -> None:
     import torch
 
@@ -2685,6 +2956,8 @@ def main() -> None:
     ws = warmstart_phase(dev, card, kernels)
     # ---- 26. randomized datagen, the sharded dryrun, the CLIs ----
     by_phase.update(scale_phase(dev, card, kernels))
+    # ---- 27. the host controllers, push recovery and turning, run_mpc ----
+    by_phase.update(host_loop_phase(dev, card, kernels))
     for r in results:
         r["launches_by_phase"] = {ph: c[r["name"]] for ph, c in by_phase.items()}
     next(r for r in results if r["name"] == "policy_pd")["launches_by_phase"]["25"] = ws

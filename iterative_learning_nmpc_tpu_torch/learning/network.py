@@ -284,4 +284,8 @@ class ServedPolicy:
     def __call__(self, state44, goal, qj, vj, kp: float, kd: float):
         """(act, tau) (B, 12): the PD targets and kp (act - qj) - kd vj, by
         ``route``."""
-        return self._serve(self.layers, kp, kd, self.normalize(state44, goal), qj, vj)
+        return self.serve(self.normalize(state44, goal), qj, vj, kp, kd)
+
+    def serve(self, x, qj, vj, kp: float, kd: float):
+        """``__call__`` on inputs (B, 47) already normalised."""
+        return self._serve(self.layers, kp, kd, x, qj, vj)

@@ -15,7 +15,7 @@ right, as the JAX package's functions do under ``jax.vmap`` with
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,6 +31,16 @@ from .math3d import (
 )
 
 GRAVITY = 9.81
+
+
+class FK(NamedTuple):
+    """World body kinematics (..., nv, ...): the six dummy base bodies carry
+    the base pose, DOFs 6.. the leg links (leg-major, hip to calf)."""
+
+    R: torch.Tensor       # (..., nv, 3, 3)
+    p: torch.Tensor       # (..., nv, 3)
+    w: torch.Tensor       # (..., nv, 3) world angular velocity
+    vlin: torch.Tensor    # (..., nv, 3) world linear velocity of the body origin
 
 
 def _leg_arrays(spec: RobotSpec):
@@ -97,6 +107,56 @@ def foot_velocities(spec: RobotSpec, q: torch.Tensor, v: torch.Tensor) -> torch.
         w_p = w_p + axs[k] * qd_legs[..., k:k + 1]
         p_p = ps[k]
     return v_p + cross(w_p, p_foot - ps[2])
+
+
+def foot_jacobians(spec: RobotSpec, q: torch.Tensor) -> torch.Tensor:
+    """World-aligned linear foot Jacobians dp_foot/dq (..., 4, 3, nv): one
+    forward-mode pass along each unit direction of q."""
+    nv = q.shape[-1]
+    eye = torch.eye(nv, dtype=q.dtype, device=q.device)
+    qe = q.unsqueeze(-2).expand(q.shape[:-1] + (nv, nv)).contiguous()
+    _, J = torch.func.jvp(lambda qq: foot_positions(spec, qq), (qe,),
+                          (eye.expand_as(qe).contiguous(),))
+    return J.movedim(-3, -1)                                  # (..., 4, 3, nv)
+
+
+def _stack_bodies(lead, base: torch.Tensor, links) -> torch.Tensor:
+    """(*lead, 18, *tail): the base quantity (*lead, *tail) for the six
+    dummy base bodies, then the leg links (a list over the 3 links of
+    (*lead, 4, *tail)) leg-major."""
+    tail = base.shape[len(lead):]
+    legs = torch.stack(links, dim=len(lead) + 1).reshape(lead + (12,) + tail)
+    return torch.cat([base.unsqueeze(len(lead)).expand(lead + (6,) + tail), legs],
+                     dim=len(lead))
+
+
+def fk_pos(spec: RobotSpec, q: torch.Tensor):
+    """World body poses R (..., nv, 3, 3), p (..., nv, 3); the dummy base
+    bodies carry the base pose (massless: only the trunk and leg entries
+    are meaningful)."""
+    Rs, ps, _, _ = _leg_frames(spec, q)
+    lead = q.shape[:-1]
+    return (_stack_bodies(lead, ypr_to_matrix(q[..., 3:6]), Rs),
+            _stack_bodies(lead, q[..., :3], ps))
+
+
+def fk_vel(spec: RobotSpec, q: torch.Tensor, v: torch.Tensor) -> FK:
+    """``fk_pos`` with each body's world angular velocity and the world
+    linear velocity of its origin."""
+    Rs, ps, axs, _ = _leg_frames(spec, q)
+    R_b, _, w_b = _base_rates(q, v)
+    qd_legs = v[..., 6:].reshape(v.shape[:-1] + (4, 3))
+    w_p, v_p, p_p = w_b.unsqueeze(-2), v[..., None, :3], q[..., None, :3]
+    ws, vs = [], []
+    for k in range(3):
+        v_p = v_p + cross(w_p, ps[k] - p_p)
+        w_p = w_p + axs[k] * qd_legs[..., k:k + 1]
+        p_p = ps[k]
+        ws.append(w_p)
+        vs.append(v_p)
+    lead = q.shape[:-1]
+    return FK(*(_stack_bodies(lead, base, links) for base, links in (
+        (R_b, Rs), (q[..., :3], ps), (w_b, ws), (v[..., :3], vs))))
 
 
 def rnea(spec: RobotSpec, q: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
@@ -213,6 +273,41 @@ def com_position(spec: RobotSpec, q: torch.Tensor) -> torch.Tensor:
         x_k = ps[k] + matvec(Rs[k], com_legs[..., k, :])      # (..., 4, 3)
         acc = acc + (m_legs[..., k, None] * x_k).sum(-2)
     return acc / spec.mass[..., 5:].sum(-1, keepdim=True)
+
+
+def centroidal_momentum(spec: RobotSpec, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """h = [linear, angular] about the CoM, world-aligned (..., 6), from the
+    trunk and the 12 leg links."""
+    fk = fk_vel(spec, q, v)
+    R, p, w, vl = fk.R[..., 5:, :, :], fk.p[..., 5:, :], fk.w[..., 5:, :], fk.vlin[..., 5:, :]
+    m, c, Ic = spec.mass[..., 5:], spec.com[..., 5:, :], spec.inertia[5:]
+    c_body = matvec(R, c)
+    x_com = p + c_body
+    v_com = vl + cross(w, c_body)
+    mm = m[..., None]
+    lin = (mm * v_com).sum(-2)
+    com = (mm * x_com).sum(-2) / m.sum(-1, keepdim=True)
+    I_w = R @ Ic @ R.transpose(-1, -2)
+    ang = (matvec(I_w, w) + cross(x_com - com.unsqueeze(-2), mm * v_com)).sum(-2)
+    return torch.cat([lin, ang], dim=-1)
+
+
+def centroidal_momentum_rate(spec: RobotSpec, q, v, a) -> torch.Tensor:
+    """dh/dt along (v, a), (..., 6): the forward-mode derivative of
+    ``centroidal_momentum``."""
+    return torch.func.jvp(lambda qq, vv: centroidal_momentum(spec, qq, vv), (q, v), (v, a))[1]
+
+
+def contact_wrench_about_com(spec: RobotSpec, q, f_feet, gravity: float = GRAVITY) -> torch.Tensor:
+    """The foot forces (..., 4, 3) and gravity as a wrench about the CoM,
+    world-aligned (..., 6)."""
+    c = com_position(spec, q)
+    p_feet = foot_positions(spec, q)
+    m_tot = spec.mass.sum(-1, keepdim=True)
+    g = torch.tensor([0.0, 0.0, -gravity], dtype=q.dtype, device=q.device)
+    lin = f_feet.sum(-2) + m_tot * g
+    ang = cross(p_feet - c.unsqueeze(-2), f_feet).sum(-2)
+    return torch.cat([lin, ang], dim=-1)
 
 
 def forward_dynamics(spec: RobotSpec, q, v, tau_joints, f_ext_feet=None) -> torch.Tensor:

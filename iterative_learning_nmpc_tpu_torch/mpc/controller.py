@@ -19,6 +19,10 @@ Counterpart of ``iterative_learning_nmpc_tpu/mpc/controller.py``
   (``contact_planner.set_contact_locations``). The last two restrict the
   contacts: active feet are pinned to the planned xy (``restrict = 1``,
   ``cnt_loc``) and the base reference follows the footsteps.
+- ``interactive_goal`` reads the velocity command from a
+  ``utils/interactive.SetVelocityGoal`` teleop at every replan, and the
+  terminal base reference then follows the measured base instead of the
+  integrated command.
 - Asynchronous replanning: a one-worker ``ThreadPoolExecutor`` solves while
   the plant steps, with the delay compensation
   ``ceil(replan_time / sim_dt) - 1``; ``async_sim_latency`` models the
@@ -63,6 +67,7 @@ class LocomotionMPC:
         sim_dt: float = 1.0e-3,
         height_offset: float = 0.0,
         contact_planner: str = "",
+        interactive_goal: bool = False,
         print_info: bool = False,
         compute_timings: bool = True,
         solve_async: bool = True,
@@ -125,6 +130,8 @@ class LocomotionMPC:
         self.solve_async = solve_async
         self.async_sim_latency = async_sim_latency
         self.compute_timings = compute_timings
+        self.interactive_goal = interactive_goal
+        self.velocity_goal = None
         self.recover_on_divergence = recover_on_divergence
         self.n_interp_plan = round(self.config_opt.time_horizon / sim_dt)
 
@@ -233,6 +240,14 @@ class LocomotionMPC:
         self.optimize_future: Future = Future()
         self.plan_submitted = False
 
+        if self.velocity_goal is not None:
+            self.velocity_goal.stop()
+        self.velocity_goal = None
+        if self.interactive_goal:
+            from ..utils.interactive import SetVelocityGoal
+
+            self.velocity_goal = SetVelocityGoal()
+
     # ------------------------------------------------------------------
     def set_command(self, v_des: np.ndarray = np.zeros(3), w_yaw: float = 0.0) -> None:
         self.v_des = np.asarray(v_des, dtype=np.float64)
@@ -268,8 +283,12 @@ class LocomotionMPC:
         base_ref_e = base_ref.copy()
         R_yaw = tnp.ypr_to_matrix(np.array([self.w_des[2] * t_horizon, 0.0, 0.0]))
         base_ref_e[6:9] = R_yaw @ base_ref[6:9]
-        pos_ref = self.base_ref_vel_tracking[:3]
-        yaw_ref = self.base_ref_vel_tracking[3]
+        if self.velocity_goal is not None:
+            pos_ref = np.round(q[:3], 2)
+            yaw_ref = q[3]
+        else:
+            pos_ref = self.base_ref_vel_tracking[:3]
+            yaw_ref = self.base_ref_vel_tracking[3]
         base_ref_e[:2] = pos_ref[:2] + v_des_glob[:2] * t_horizon
         base_ref_e[3] = yaw_ref + self.w_des[2] * t_horizon
         # intermediate running reference
@@ -313,6 +332,8 @@ class LocomotionMPC:
         host plan (q, v, a, f, tau_ff), float64."""
         node = self.current_opt_node
         N = self.config_opt.n_nodes
+        if self.velocity_goal is not None:
+            self.v_des, self.w_des[2] = self.velocity_goal.get_velocity()
         cnt = self.contact_planner.get_contacts(node, N + 1).astype(np.float32)
         peak = (self.contact_planner.get_peaks(node, N + 1).astype(np.float32)
                 if self.config_opt.opt_peak else 1.0 - cnt)
@@ -549,18 +570,82 @@ class LocomotionMPC:
             sim_time += self.sim_dt
         return np.array(q_traj)
 
+    def plot_traj(self, var_name: str, save_path: Optional[str] = None):
+        """Plot a recorded trajectory over time, 3 panels a row, the
+        time-aligned plan dashed over the realized one where both exist:
+        'q', 'v', 'tau' realized and plan; 'a', 'f', 'dt' the plan only
+        (nothing measures them). Returns the matplotlib figure, saved to
+        ``save_path`` if given. matplotlib is imported here only."""
+        import matplotlib
+
+        matplotlib.use("Agg", force=False)
+        import matplotlib.pyplot as plt
+
+        spec_map = {
+            "q": ("q_full", "q_plan_full"),
+            "v": ("v_full", "v_plan_full"),
+            "tau": ("tau_full", "tau_plan_full"),
+            "a": (None, "a_plan_full"),
+            "f": (None, "f_plan_full"),
+            "dt": (None, "dt_plan_full"),
+        }
+        if var_name not in spec_map:
+            raise ValueError(f"No recorded trajectory for '{var_name}'."
+                             f" Choose from: {sorted(spec_map)}.")
+        real_attr, plan_attr = spec_map[var_name]
+
+        def stack(attr):
+            rows = getattr(self, attr, None)
+            if not rows:
+                return None
+            arr = np.asarray(rows)
+            if arr.ndim == 1:
+                arr = arr[:, None]
+            return arr.reshape(arr.shape[0], -1)
+
+        traj = stack(real_attr) if real_attr else None
+        plan = stack(plan_attr)
+        base = traj if traj is not None else plan
+        if base is None:
+            raise ValueError(f"No recorded data for '{var_name}' yet.")
+        n, dims = base.shape
+        t = np.arange(n) * self.sim_dt
+        rows = (dims + 2) // 3
+        fig, axs = plt.subplots(rows, 3, figsize=(15, 3 * rows))
+        axs = np.atleast_1d(axs).ravel()
+        for i in range(dims):
+            if traj is not None:
+                axs[i].plot(t, traj[:, i], label="realized")
+            if plan is not None:
+                tp = np.arange(plan.shape[0]) * self.sim_dt
+                axs[i].plot(tp, plan[:, i], "--", label="plan")
+            axs[i].set_title(f"{var_name}[{i}]")
+            axs[i].grid(True)
+            if i == 0 and traj is not None and plan is not None:
+                axs[i].legend(loc="best", fontsize=8)
+        for i in range(dims, len(axs)):
+            fig.delaxes(axs[i])
+        fig.tight_layout()
+        if save_path:
+            fig.savefig(save_path, dpi=110, bbox_inches="tight")
+        return fig
+
     def print_timings(self):
         print()
         print_timings(self.timings)
 
     def close(self) -> None:
-        """Stop the worker thread."""
+        """Stop the worker thread and the teleop."""
         if self.executor is not None:
             self.executor.shutdown(wait=True, cancel_futures=True)
             self.executor = None
+        if self.velocity_goal is not None:
+            self.velocity_goal.stop()
 
     def __del__(self):
         try:
             self.executor.shutdown(wait=False, cancel_futures=True)
         except Exception:
             pass
+        if getattr(self, "velocity_goal", None) is not None:
+            self.velocity_goal.stop()
