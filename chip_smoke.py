@@ -176,9 +176,9 @@ rows, and the on-device SafeDAgger loop). Phases, one line each:
      scripts/make_torch_host_loop_golden.py), each part with the counters
      set to 0 before it and read after it: (a) PolicyController (the
      shipped policy, served at B=1: kernel 8 once a control step) at 0.15
-     m/s for 1 s on the device plant, coupled through a simulator stand-in
-     (PlantStandIn: the spec, the foot geoms and their positions from the
-     plant state), upright, every 100th action held to the kernel's CPU twin
+     m/s for 1 s on the device plant, coupled through phase 28's simulator
+     stand-in (DevicePlantSimulator: the spec, the foot geoms and their
+     positions from the plant state), upright, every 100th action held to the kernel's CPU twin
      on the same input within phase 10's bound, ms a control step and
      inference_ms; (b) CombinedController (that policy and LocomotionMPC,
      delay 100 steps, the MPC latched >= 200) for 1 s with the golden's
@@ -190,7 +190,29 @@ rows, and the on-device SafeDAgger loop). Phases, one line each:
      JAX controller on the JAX device plant passes them), the turn's final
      yaw within TURN_YAW_TOL of the JAX run's; (d) examples/run_mpc.py
      --mode traj_opt and --mode open_loop --sim_time 0.5 as subprocesses,
-     their launches parsed from their output ("27 cli").
+     their launches parsed from their output ("27 cli"),
+ 28. the host-side learning pipeline on the device plant, which a
+     DevicePlantSimulator (the Simulator surface: reset, step, run, the
+     fall test, data.qpos/qvel/ctrl/xfrc_applied/geom_xpos) puts in MuJoCo's
+     place as the Simulator that learning.plant_batch and learning.rollouts
+     build, each part with the counters set to 0 before it and read after
+     it: (a) BatchedPlantCollector expert-only at E=16 for 0.2 s (joint
+     noise 0.02, seed 3): no fall, every row expert, 16 x 200 rows, kernels
+     1, 2, 3 launched and kernel 7 not, the first batched plan within
+     REL_GATE of the same call through the plain twins on the card; env-sim-s
+     per s, ms a control step, replan ms at B=16; (b) the same combined
+     (the shipped policy, delay 20, latch 60, phase 27's combined push on
+     the odd envs): kernel 8 once a control step, each env's labels equal a
+     SwitchLatch replay of its monitor log, the expert in a pushed env; (c)
+     DataCollection.run (Go2 trot at 0.3 m/s, 0.5 s nominal, two replanning
+     points, one 0.3 s pushed restart each): the npz snapshot's rows the kept
+     rollouts', kernels 1, 3 and 7 launched; (d) SafeDaggerPipeline.run (goal
+     0.15 m/s, one iteration, 0.3 s, onto (c)'s snapshot, 3 epochs at batch
+     64): the aggregate (c)'s rows plus the expert rows, BC on the card, the
+     new policy served through kernel 8; (e) examples/train_bc.py on (c)'s
+     snapshot as a subprocess ("28 cli"): its config_smoke.yaml, written
+     without PyYAML, read back by the port's load_config to the same
+     TrainConfig.
 
 It then prints one JSON line with the kernels' results (each with its
 bound: the larger of its operations over the card's fp32 rate, bf16
@@ -309,6 +331,16 @@ PUSH_S, PUSH = 1.6, ((0.7, 0.9, (40.0, 20.0, 0.0)),)
 TURN_S, TURN_V, TURN_W = 2.0, 0.2, 0.4
 TURN_YAW_TOL = 0.1
 OPEN_LOOP_S = 0.5
+# phase 28: the host-side learning pipeline on the device plant. The batched
+# collector at the collect_plant_batch CLI's default E and goals, 0.2 s,
+# joint noise 0.02, seed 3 (the JAX tests/test_plant_batch.py settings);
+# combined (the shipped policy, DELAY_STEPS / MPC_MIN_STEPS) for PB_COMB_S,
+# phase 27's combined push on the odd envs; DataCollection (Go2 trot, one
+# trot period nominal, two replanning points, one pushed restart each); the
+# SafeDAgger pipeline (one goal, one iteration) onto its rows; train_bc
+PB_E, PB_GOALS, PB_S, PB_NOISE, PB_SEED, PB_COMB_S = 16, (0.3, 0.15, 0.0, -0.15), 0.2, 0.02, 3, 0.3
+DC_V, DC_NOMINAL_S, DC_GRID, DC_PERTURBED_S = 0.3, 0.5, 250, 0.3
+SD_V, SD_S, SD_BATCH, SD_EPOCHS, TRAIN_EPOCHS = 0.15, 0.3, 64, 3, 2
 
 
 def fail(msg: str) -> None:
@@ -450,7 +482,8 @@ def datagen_batch(q0, n, rng):
 
 class PlantData:
     """What a controller's compute_torques_dof reads: time, qpos, qvel in
-    MuJoCo layout (and, for PlantStandIn, geom_xpos)."""
+    MuJoCo layout (and, in a DevicePlantSimulator, the rest of MuJoCo's
+    data that the pipeline reads)."""
     time, qpos, qvel = 0.0, None, None
 
 
@@ -1538,51 +1571,193 @@ def load_golden(name):
     return np.load(os.path.join(ROOT, "tests", "data", f"{name}_golden.npz"))
 
 
-def plant_loop(dev, spec, mpc, q0, seconds, pushes=(), standin=None):
+class PlantGraph:
+    """One B=1 device-plant step (``sim/device_sim``) and the feet's world
+    points after it as a CUDA graph: the plant step of every closed loop on
+    the device plant (``plant_loop``) and of phase 28's simulators, which
+    share one. A step copies the chart state, the joint torques and the
+    trunk force in (one copy), replays the graph and reads the state and the
+    feet back (one copy). ``eager_gap`` holds the replay to the eager step:
+    the first version of phase 28 replayed a graph whose contact parameters
+    had been freed (``device_sim.graphed`` did not yet hold the function it
+    captured), and 15 of 16 envs fell. ``calls`` and ``busy_s`` count the
+    steps and the wall inside them (the copies and the replay: the copy back
+    waits for the replay), for phase 28's split of a control step."""
+
+    calls, busy_s = 0, 0.0
+
+    def __init__(self, spec, dev, dt=1e-3):
+        import torch
+
+        from iterative_learning_nmpc_tpu_torch.models.dynamics import settled_state
+        from iterative_learning_nmpc_tpu_torch.sim import device_sim
+
+        self.spec, self.dt = spec, dt
+        self.cp = device_sim.contact_params_for(spec, device=dev)
+        self.dev, self.t = dev, torch.zeros(1, device=dev)
+        x0 = torch.as_tensor(settled_state(spec.to("cpu")), device=dev)[None]
+        self.run = device_sim.graphed(self.eager_step, x0[:, :18].contiguous(),
+                                      x0[:, 18:].contiguous(), self.t,
+                                      torch.zeros(1, 12, device=dev), torch.zeros(1, 3, device=dev))
+
+    def eager_step(self, q, v, t, tau, f):
+        from iterative_learning_nmpc_tpu_torch.models.dynamics import foot_positions
+        from iterative_learning_nmpc_tpu_torch.sim import device_sim
+
+        q, v, t = device_sim.step(self.spec, device_sim.SimState(q, v, t), tau, self.cp, self.dt,
+                                  f_ext=f)
+        return q, v, t, foot_positions(self.spec, q).reshape(1, 12)
+
+    def __call__(self, x, run=None):
+        """x (51,) float32: q, v (chart), tau (12), trunk force (3) -> the
+        chart state after the step and the feet's world points (48,)."""
+        import torch
+
+        t0 = time.perf_counter()
+        d = torch.as_tensor(x).to(self.dev)
+        q, v, _, feet = (run or self.run)(d[None, :18], d[None, 18:36], self.t, d[None, 36:48],
+                                          d[None, 48:])
+        y = torch.cat([q, v, feet], -1)[0].cpu().numpy()
+        self.calls, self.busy_s = self.calls + 1, self.busy_s + time.perf_counter() - t0
+        return y
+
+    def eager_gap(self, n=5, seed=0):
+        """max |graph step - eager step| over n random near-standing inputs."""
+        import numpy as np
+
+        from iterative_learning_nmpc_tpu_torch.models.dynamics import settled_state
+
+        rng, x0 = np.random.default_rng(seed), settled_state(self.spec.to("cpu"))
+        gap = 0.0
+        for _ in range(n):
+            x = np.concatenate([x0 + rng.normal(0, 0.01, 36), rng.normal(0, 5, 12),
+                                rng.normal(0, 10, 3)]).astype(np.float32)
+            gap = max(gap, float(np.abs(self(x) - self(x, self.eager_step)).max()))
+        return gap
+
+
+class DevicePlantSimulator:
+    """The ``sim/mujoco_sim.Simulator`` surface the learning pipeline uses,
+    on the device plant: ``reset``, ``set_state``, ``step`` (one replay of
+    a ``PlantGraph`` with ``data.ctrl`` and the trunk's force in
+    ``data.xfrc_applied``), ``run`` (``Simulator.run``'s own loop),
+    ``_bad_collision`` (the datagen fall test, ``learning.safety.upright``'s
+    bounds), ``feet_in_contact``; ``data.{qpos, qvel, ctrl, xfrc_applied,
+    geom_xpos, time}`` in MuJoCo layout, ``trunk_body`` and ``foot_geoms``
+    (the feet's world points by the dynamics' float32 FK: in the graph
+    after a step, on the host after ``set_state``). ``plant_loop`` couples
+    every closed loop on the device plant through one. No package code
+    knows of it: phase 28 installs it as the ``Simulator``
+    that ``learning.rollouts`` and ``learning.plant_batch`` build."""
+
+    foot_geoms = {0: "FL", 1: "FR", 2: "RL", 3: "RR"}
+    trunk_body = 0
+    _mj = None
+
+    def __init__(self, spec, graph, sim_dt=1e-3):
+        import numpy as np
+
+        from iterative_learning_nmpc_tpu_torch.sim.mujoco_sim import Simulator
+
+        self.spec, self._host, self.graph, self.sim_dt = spec, spec.to("cpu"), graph, sim_dt
+        self._foot_r = float(self._host.foot_radius)
+        self.run = Simulator.run.__get__(self)
+        self.data = PlantData()
+        self.data.ctrl, self.data.xfrc_applied = np.zeros(12), np.zeros((1, 6))
+        self.reset()
+
+    def reset(self, q_mj=None, v_mj=None):
+        import numpy as np
+
+        from iterative_learning_nmpc_tpu_torch.models import transforms_np as tnp
+        from iterative_learning_nmpc_tpu_torch.models.dynamics import settled_state
+
+        self.data.time = 0.0
+        self.data.ctrl[:] = 0.0
+        self.data.xfrc_applied[:] = 0.0
+        if q_mj is None:
+            x = settled_state(self._host).astype(np.float64)
+            q_mj, v0 = tnp.convert_to_mujoco(x[:18], x[18:])
+            v_mj = v0 if v_mj is None else v_mj
+        self.set_state(q_mj, np.zeros(18) if v_mj is None else v_mj)
+
+    def set_state(self, q_mj, v_mj):
+        import numpy as np
+
+        self.data.qpos = np.array(q_mj, np.float64)
+        self.data.qvel = np.array(v_mj, np.float64)
+        self._forward()
+
+    def _forward(self, feet=None):
+        import numpy as np
+        import torch
+
+        from iterative_learning_nmpc_tpu_torch.models import transforms_np as tnp
+        from iterative_learning_nmpc_tpu_torch.models.dynamics import foot_positions
+
+        self._q, self._v = tnp.convert_from_mujoco(self.data.qpos, self.data.qvel)
+        if feet is None:
+            feet = foot_positions(self._host, torch.as_tensor(self._q, dtype=torch.float32))
+            feet = feet.numpy()
+        self.data.geom_xpos = np.asarray(feet, np.float64).reshape(4, 3)
+
+    def step(self):
+        import numpy as np
+
+        from iterative_learning_nmpc_tpu_torch.models import transforms_np as tnp
+
+        x = np.concatenate([self._q, self._v, self.data.ctrl,
+                            self.data.xfrc_applied[self.trunk_body, :3]]).astype(np.float32)
+        y = self.graph(x).astype(np.float64)
+        self.data.qpos, self.data.qvel = tnp.convert_to_mujoco(y[:18], y[18:36])
+        self.data.time += self.sim_dt
+        self._forward(y[36:])
+
+    def _bad_collision(self) -> bool:
+        from iterative_learning_nmpc_tpu_torch.learning.safety import (
+            FALL_HEIGHT_BOUNDS, FALL_MAX_TILT_RAD)
+
+        q = self._q
+        return not (FALL_HEIGHT_BOUNDS[0] < q[2] < FALL_HEIGHT_BOUNDS[1]
+                    and abs(q[4]) < FALL_MAX_TILT_RAD and abs(q[5]) < FALL_MAX_TILT_RAD)
+
+    def feet_in_contact(self):
+        return [leg for i, leg in self.foot_geoms.items()
+                if self.data.geom_xpos[i, 2] <= self._foot_r + 2e-3]
+
+
+def plant_loop(dev, spec, mpc, q0, seconds, pushes=(), sim=None):
     """``mpc`` (any controller with ``compute_torques_dof`` and
     ``torques_dof``) on the device plant for ``seconds`` at 1 kHz from (q0,
-    0), through ``compute_torques_dof`` as phase 8 couples them, with the
-    plant's step one CUDA graph (``device_sim.graphed``); ``pushes`` are
-    (start, end, (3,) world force on the base) windows, as the MuJoCo
-    simulator's force schedule; ``standin`` (a ``PlantStandIn``) is given
-    each state before the controller reads it. Returns the chart states
-    (steps + 1, 18) and the wall."""
+    0), through ``compute_torques_dof`` as phase 8 couples them: the
+    controller reads ``sim.data`` (a ``DevicePlantSimulator``, the one a
+    policy controller was built on, or a new one) and the plant steps by
+    ``sim.step()``, one replay of its ``PlantGraph``. ``pushes`` are (start,
+    end, (3,) world force on the base) windows, as the MuJoCo simulator's
+    force schedule. Returns the chart states (steps + 1, 18) and the wall."""
     import numpy as np
-    import torch
 
     from iterative_learning_nmpc_tpu_torch.models import transforms_np as tnp
-    from iterative_learning_nmpc_tpu_torch.sim import device_sim
 
-    cp = device_sim.contact_params_for(spec, device=dev)
     dt, nu = getattr(mpc, "sim_dt", 1e-3), spec.nu
-
-    def one(q, v, t, tau, f):
-        return tuple(device_sim.step(spec, device_sim.SimState(q, v, t), tau, cp, dt,
-                                     f_ext=f))
-
-    q = torch.as_tensor(np.asarray(q0, np.float32), device=dev)[None]
-    v, t = torch.zeros_like(q), torch.zeros(1, device=dev)
-    tau, f = torch.zeros(1, nu, device=dev), torch.zeros(1, 3, device=dev)
-    run = device_sim.graphed(one, q, v, t, tau, f)
+    if sim is None:
+        sim = DevicePlantSimulator(spec, PlantGraph(spec, dev, dt), sim_dt=dt)
+    sim.reset(*tnp.convert_to_mujoco(np.asarray(q0, np.float64), np.zeros(18)))
     n = int(round(seconds / dt))
-    qs, data = np.zeros((n + 1, 18)), PlantData()
+    qs = np.zeros((n + 1, 18))
     t0 = time.perf_counter()
     for i in range(n):
-        x = torch.cat([q, v], -1)[0].cpu().numpy().astype(np.float64)
-        qs[i] = x[:18]
-        data.qpos, data.qvel = tnp.convert_to_mujoco(x[:18], x[18:])
-        data.time = i * dt
-        if standin is not None:
-            standin.update(x[:18])
-        mpc.compute_torques_dof(data)
-        push = np.zeros((1, 3), np.float32)
+        qs[i] = sim._q
+        sim.data.time = i * dt
+        mpc.compute_torques_dof(sim.data)
+        push = np.zeros(3)
         for a, b, force in pushes:
-            if a <= data.time < b:
-                push[0] += force
-        q, v, t = run(q, v, t, torch.as_tensor(mpc.torques_dof[None, -nu:],
-                                               dtype=torch.float32).to(dev),
-                      torch.as_tensor(push).to(dev))
-    qs[n] = q[0].cpu().numpy()
+            if a <= sim.data.time < b:
+                push += force
+        sim.data.ctrl[:] = mpc.torques_dof[-nu:]
+        sim.data.xfrc_applied[sim.trunk_body, :3] = push
+        sim.step()
+    qs[n] = sim._q
     return qs, time.perf_counter() - t0
 
 
@@ -2315,31 +2490,6 @@ def solo12_gates(loops) -> None:
             fail(f"solo12 {name}: outside the reference run's gates")
 
 
-class PlantStandIn:
-    """What ``PolicyController`` reads of a simulator, from the device
-    plant's state: ``spec``, ``foot_geoms`` (FL, FR, RL, RR) and
-    ``data.geom_xpos`` (the feet's world points, the foot geoms' centres,
-    by the dynamics' FK on the host in float32)."""
-
-    foot_geoms = {0: "FL", 1: "FR", 2: "RL", 3: "RR"}
-
-    def __init__(self, spec):
-        import numpy as np
-
-        self.spec, self._host = spec, spec.to("cpu")
-        self.data = PlantData()
-        self.data.geom_xpos = np.zeros((4, 3))
-
-    def update(self, q):
-        import numpy as np
-        import torch
-
-        from iterative_learning_nmpc_tpu_torch.models.dynamics import foot_positions
-
-        self.data.geom_xpos = foot_positions(
-            self._host, torch.as_tensor(q, dtype=torch.float32)).numpy().astype(np.float64)
-
-
 class CheckedPolicy:
     """A ``PolicyController`` whose every ``every``-th action is held to the
     kernel's plain twin on the CPU at the same input (phase 10's bound:
@@ -2411,12 +2561,12 @@ def host_loop_phase(dev, card, kernels) -> dict:
             total[k] += c
 
     # (a) PolicyController at B=1 on the card, kernel 8 each control step
-    standin = PlantStandIn(spec)
-    pol = PolicyController(standin, path, v_des=v_pol, device=dev)
+    sim = DevicePlantSimulator(spec, PlantGraph(spec, dev))
+    pol = PolicyController(sim, path, v_des=v_pol, device=dev)
     checked = CheckedPolicy(pol, HOST_CHECK)
     zero(kernels)
     dense0 = policy_pd_dense.calls
-    qs, wall = plant_loop(dev, spec, checked, q0, HOST_S, standin=standin)
+    qs, wall = plant_loop(dev, spec, checked, q0, HOST_S, sim=sim)
     launches = read(kernels)
     add(launches)
     steps = int(round(HOST_S / 1e-3))
@@ -2444,15 +2594,14 @@ def host_loop_phase(dev, card, kernels) -> dict:
     pushes = tuple((float(a), float(b), tuple(float(x) for x in f))
                    for a, b, *f in g["plant_comb_push"])
     v_comb = np.array([float(g["plant_comb_v"]), 0.0, 0.0])
-    standin = PlantStandIn(spec)
+    sim = DevicePlantSimulator(spec, PlantGraph(spec, dev))
     mpc = LocomotionMPC(spec, gait_name="trot", solve_async=False, device=dev)
-    comb = CombinedController(standin, mpc, PolicyController(standin, path, v_des=v_comb,
-                                                             device=dev),
+    comb = CombinedController(sim, mpc, PolicyController(sim, path, v_des=v_comb, device=dev),
                               v_des=v_comb, delay_steps=int(g["delay_steps"]),
                               mpc_min_steps=int(g["mpc_min_steps"]))
     comb.set_command(v_comb)
     zero(kernels)               # after the policy's construction-time call
-    qs, wall = plant_loop(dev, spec, comb, q0, HOST_S, pushes, standin=standin)
+    qs, wall = plant_loop(dev, spec, comb, q0, HOST_S, pushes, sim=sim)
     mpc.close()
     launches = read(kernels)
     add(launches)
@@ -2542,6 +2691,305 @@ def host_loop_phase(dev, card, kernels) -> dict:
     print(f"[27] CLIs {time.perf_counter() - t0:.1f} s side by side; launches {total}; phase 27 "
           f"wall {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"27": total, "27 cli": cli}
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the host-side learning pipeline on the card, the device plant in
+# MuJoCo's place
+def step_split(res, graph, steps) -> str:
+    """A collector run's control step split into its plant graphs (timed
+    inside ``PlantGraph``), its replans (``res.replan_ms``) and the rest,
+    the host's, in ms a control step."""
+    import numpy as np
+
+    wall, plant = res.wall_s * 1e3 / steps, graph.busy_s * 1e3 / steps
+    replan = float(np.sum(res.replan_ms)) / steps
+    return (f"a control step {wall:.3f} ms = plant graphs {plant:.3f} ms ({graph.calls} steps, "
+            f"{graph.busy_s * 1e3 / max(graph.calls, 1):.4f} ms each) + replans {replan:.3f} ms "
+            f"+ host {wall - plant - replan:.3f} ms")
+
+
+def replay_latch(monitor, n):
+    """A fresh ``SwitchLatch`` (phase 28's delay and latch) over one env's
+    monitor log: the modes of its first n steps, None where the replay
+    consults a step the collector's latch did not."""
+    from iterative_learning_nmpc_tpu_torch.learning.combined_controller import SwitchLatch
+
+    latch, out = SwitchLatch(DELAY_STEPS, MPC_MIN_STEPS), []
+    for s in range(n):
+        read = []
+
+        def unsafe(s=s):
+            read.append(int(monitor[s]))
+            return monitor[s] == 1
+
+        out.append(latch.update(unsafe) == "mpc")
+        if read and read[0] < 0:
+            return None
+    return out
+
+
+def learning_pipeline_phase(dev, card, kernels) -> dict:
+    """Phase 28: the host-side learning pipeline (``learning/plant_batch``,
+    ``learning/datagen``, ``learning/dagger``'s pipeline, the train_bc CLI)
+    on the card, each part with the counters set to 0 before it and read
+    after it. Returns the launches by part."""
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch.learning import plant_batch, rollouts
+    from iterative_learning_nmpc_tpu_torch.learning.dagger import (
+        SafeDaggerConfig, SafeDaggerPipeline)
+    from iterative_learning_nmpc_tpu_torch.learning.database import Database
+    from iterative_learning_nmpc_tpu_torch.learning.datagen import (
+        DataCollection, DataCollectionConfig)
+    from iterative_learning_nmpc_tpu_torch.learning.network import ServedPolicy, read_payload
+    from iterative_learning_nmpc_tpu_torch.learning.rollouts import ForceWindow
+    from iterative_learning_nmpc_tpu_torch.learning.train import TrainConfig
+    from iterative_learning_nmpc_tpu_torch.interop import policy_from_numpy
+    from iterative_learning_nmpc_tpu_torch.mpc.controller import LocomotionMPC
+    from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore_plain
+    from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac_plain
+    from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram_plain
+    from iterative_learning_nmpc_tpu_torch.ops.riccati import riccati_rollout_plain
+    from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec
+    from iterative_learning_nmpc_tpu_torch.solver.sqp import TrajOptSolver
+    from iterative_learning_nmpc_tpu_torch.utils.config_io import load_config
+
+    t_phase = time.perf_counter()
+    spec = go2_spec(device=dev)
+    graph = PlantGraph(spec, dev)
+    gap = graph.eager_gap()
+    if gap != 0.0:
+        fail(f"28: the plant graph is {gap} off the eager step")
+    total = dict.fromkeys((k.__name__ for k in kernels), 0)
+
+    def add(counts):
+        for k, c in counts.items():
+            total[k] += c
+
+    # the device plant as the Simulator the pipeline builds
+    installed = {m: m.Simulator for m in (plant_batch, rollouts)}
+    for m in installed:
+        m.Simulator = lambda spec, **kw: DevicePlantSimulator(spec, graph)
+    print("[28] DevicePlantSimulator (the device plant, one CUDA graph a step, bit-equal to the "
+          "eager step on 5 near-standing inputs) installed as learning.plant_batch.Simulator "
+          "and learning.rollouts.Simulator", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_28_")
+    try:
+        # (a) the batched collector, expert-only, one batched plan at B=E
+        v_des = np.zeros((PB_E, 3))
+        v_des[:, 0] = np.tile(PB_GOALS, PB_E // len(PB_GOALS) + 1)[:PB_E]
+        coll = plant_batch.BatchedPlantCollector(spec, n_envs=PB_E, device=dev)
+        first = {}
+        plan = coll.mpc._plan
+
+        def keep_first(*a):
+            out = plan(*a)
+            if not first:
+                first["args"], first["out"] = a, out
+            return out
+
+        coll.mpc._plan = keep_first
+        zero(kernels)
+        torch.cuda.synchronize()
+        graph.calls, graph.busy_s = 0, 0.0
+        res = coll.collect(v_des, sim_time=PB_S, joint_noise=PB_NOISE, seed=PB_SEED)
+        split = step_split(res, graph, int(round(PB_S / 1e-3)))
+        launches = read(kernels)
+        add(launches)
+        coll.mpc._plan = plan
+
+        class PlainSolver(TrajOptSolver):
+            lingram = staticmethod(lingram_plain)
+            dynjac = staticmethod(dynjac_plain)
+            riccati_rollout = staticmethod(riccati_rollout_plain)
+            dyncore = staticmethod(dyncore_plain)
+
+        m = coll.mpc
+        plain = types.SimpleNamespace(
+            solver=PlainSolver(m.spec, m.config_opt, m.config_cost, device=dev),
+            config_opt=m.config_opt, n_interp_plan=m.n_interp_plan, n_foot=m.n_foot,
+            spec=m.spec)
+        out_p = LocomotionMPC._plan(plain, *first["args"])
+        k = coll.keep
+        cat = lambda o: torch.cat([o[2][0][:, :k], o[2][1][:, :k], o[2][4][:, :k]], -1)
+        du = rel(first["out"][0].U, out_p[0].U)
+        dplan = rel(cat(first["out"]), cat(out_p))
+        coll.close()
+        steps = int(round(PB_S / 1e-3))
+        rep = np.asarray(res.replan_ms)
+        print(f"[28 collector] expert-only, E={PB_E}, {PB_S} s, goals {PB_GOALS}: "
+              f"{len(res.state)} rows, fell {int(res.fell.sum())}, expert ratio "
+              f"{res.expert_ratio:.4f}; {res.env_sim_s:.2f} env-sim-s in {res.wall_s:.2f} s = "
+              f"{res.env_sim_s / res.wall_s:.4f} env-sim-s per s, {res.wall_s / steps * 1e3:.2f} "
+              f"ms a control step, replan at B={PB_E} {rep[0]:.1f} ms first (cold, "
+              f"{m.config_opt.max_iter_first} iterations), median {np.median(rep[1:]):.2f} ms "
+              f"after; first batched plan against the plain twins on the card: rel|dU| "
+              f"{du:.2e}, consumed interval {dplan:.2e} (gate {REL_GATE}); {split}; launches "
+              f"{launches} ({card})", flush=True)
+        if res.fell.any() or not res.is_expert.all() or len(res.state) != PB_E * steps:
+            fail(f"28 collector: fell {res.fell.tolist()}, expert {res.is_expert.mean()}, rows "
+                 f"{len(res.state)} != {PB_E * steps}")
+        if min(launches[n] for n in ("dyncore", "lingram", "riccati_rollout")) <= 0 \
+                or launches["dynjac"] != 0:
+            fail(f"28 collector: kernels 1, 2, 3 must launch and kernel 7 not: {launches}")
+        if not (du <= REL_GATE and dplan <= REL_GATE):
+            fail(f"28 collector: first plan rel {du:.2e} / {dplan:.2e} > {REL_GATE}")
+        RATES["plant_batch"] = res.env_sim_s / res.wall_s
+
+        # (b) combined: the shipped policy served at B=E, phase 27's push on
+        # the odd envs
+        path = os.path.join(ROOT, "assets", ARTIFACT)
+        g = load_golden("go2_host_loop")
+        a, b, *f = g["plant_comb_push"][0]
+        push = ForceWindow(float(a), float(b), np.asarray(f, np.float64))
+        sample = plant_batch.sample_force_perturbation
+        plant_batch.sample_force_perturbation = lambda *_a, **_k: push
+        coll = plant_batch.BatchedPlantCollector(spec, n_envs=PB_E, policy_path=path,
+                                                 delay_steps=DELAY_STEPS,
+                                                 mpc_min_steps=MPC_MIN_STEPS, device=dev)
+        zero(kernels)
+        graph.calls, graph.busy_s = 0, 0.0
+        try:
+            res = coll.collect(v_des, sim_time=PB_COMB_S, joint_noise=PB_NOISE, seed=PB_SEED,
+                               n_pushes=1)
+            split = step_split(res, graph, res.monitor.shape[1])
+        finally:
+            plant_batch.sample_force_perturbation = sample
+            coll.close()
+        launches = read(kernels)
+        add(launches)
+        steps = res.monitor.shape[1]
+        replay_ok, pushed_expert = [], []
+        for e in range(PB_E):
+            lab = res.is_expert[res.env_id == e].astype(bool)
+            replay_ok.append(replay_latch(res.monitor[e], len(lab)) == lab.tolist())
+            if e % 2:
+                pushed_expert.append(bool(lab.any()))
+        print(f"[28 collector combined] E={PB_E}, {PB_COMB_S} s, delay {DELAY_STEPS}, latch "
+              f"{MPC_MIN_STEPS}, pushed {push.force.tolist()} N over {push.start}-{push.end} s "
+              f"on the odd envs: {len(res.state)} rows, fell {int(res.fell.sum())}, expert ratio "
+              f"{res.expert_ratio:.4f}; policy_pd launches {launches['policy_pd']} for {steps} "
+              f"control steps; labels equal a SwitchLatch replay of the monitor in "
+              f"{sum(replay_ok)}/{PB_E} envs; expert in {sum(pushed_expert)}/{len(pushed_expert)} "
+              f"pushed envs; {res.env_sim_s / res.wall_s:.4f} env-sim-s per s, "
+              f"{res.wall_s / steps * 1e3:.2f} ms a control step, replan median "
+              f"{np.median(res.replan_ms[1:]):.2f} ms; {split}; launches {launches} ({card})",
+              flush=True)
+        if launches["policy_pd"] != steps:
+            fail(f"28 combined: {launches['policy_pd']} policy_pd launches for {steps} steps")
+        if not all(replay_ok) or not any(pushed_expert):
+            fail(f"28 combined: latch replay {replay_ok}, pushed-env expert {pushed_expert}")
+
+        # (c) DataCollection.run: one nominal rollout, pushed restarts
+        rec = os.path.join(tmp, "dc")
+        cfg = DataCollectionConfig(record_dir=rec, sim_time_nominal=DC_NOMINAL_S,
+                                   sim_time_perturbed=DC_PERTURBED_S, v_des=(DC_V, 0.0, 0.0),
+                                   replan_freq_steps=DC_GRID, num_perturbations_per_replanning=1,
+                                   max_retries=5)
+        zero(kernels)
+        t0 = time.perf_counter()
+        dc_path = DataCollection(spec, cfg, device=dev).run()
+        wall_dc = time.perf_counter() - t0
+        launches = read(kernels)
+        add(launches)
+        kept = [p for p in sorted(os.listdir(rec)) if p.startswith("traj_")]
+        n_kept = sum(len(np.load(os.path.join(rec, p))["time"]) for p in kept)
+        db = Database(limit=10**6)
+        db.load(dc_path)
+        print(f"[28 datagen] DataCollection.run, Go2 trot at {DC_V} m/s, nominal {DC_NOMINAL_S} "
+              f"s, replanning points every {DC_GRID} steps, pushed restarts of "
+              f"{DC_PERTURBED_S} s: kept {kept}, {len(db)} rows in {os.path.basename(dc_path)} "
+              f"(sum of the kept rollouts {n_kept}); wall {wall_dc:.2f} s; launches {launches} "
+              f"({card})", flush=True)
+        if len(db) != n_kept or len(kept) < 2:
+            fail(f"28 datagen: {len(db)} rows for {n_kept} kept rows in {kept}")
+        if min(launches[n] for n in ("dyncore", "riccati_rollout", "dynjac")) <= 0:
+            fail(f"28 datagen: kernels 1, 3 and 7 must launch: {launches}")
+
+        # (d) SafeDaggerPipeline.run: one goal, one iteration, onto (c)'s rows
+        scfg = SafeDaggerConfig(record_dir=os.path.join(tmp, "sd"), sim_time=SD_S,
+                                goals=((SD_V, 0.0, 0.0),), n_iterations_per_goal=1,
+                                batch_size=SD_BATCH, n_epochs=SD_EPOCHS,
+                                delay_steps=DELAY_STEPS, mpc_min_steps=MPC_MIN_STEPS)
+        zero(kernels)
+        t0 = time.perf_counter()
+        pipe = SafeDaggerPipeline(spec, scfg, path, initial_dataset=dc_path, device=dev)
+        final = pipe.run()
+        wall_sd = time.perf_counter() - t0
+        launches = read(kernels)
+        add(launches)
+        tag_dir = os.path.join(scfg.record_dir, "goal0_iter0")
+        traj = np.load(os.path.join(tag_dir, [p for p in os.listdir(tag_dir)
+                                              if p.startswith("traj_")][0]))
+        n_exp = int(traj["is_expert"].sum())
+        agg = Database(limit=10**6)
+        agg.load(pipe.dataset_path)
+        with open(os.path.join(scfg.record_dir, "policies", "metrics_goal0_iter0.jsonl")) as fh:
+            metrics = [json.loads(ln) for ln in fh]
+        served = ServedPolicy(*policy_from_numpy(read_payload(final), device=dev), device=dev)
+        pp0 = read(kernels)["policy_pd"]
+        x = torch.as_tensor(db.training_arrays()[0][:8], device=dev)
+        act, _ = served.serve(x, torch.zeros(8, 12, device=dev), torch.zeros(8, 12, device=dev),
+                              20.0, 1.5)
+        torch.cuda.synchronize()
+        pp = read(kernels)["policy_pd"] - pp0
+        print(f"[28 pipeline] SafeDaggerPipeline.run, goal ({SD_V}, 0, 0), 1 iteration, {SD_S} s, "
+              f"onto {len(db)} rows: expert ratio {pipe.collector.expert_ratio_history[0]:.4f} "
+              f"({n_exp} expert rows), aggregate {len(agg)} rows; BC {SD_EPOCHS} epochs, batch "
+              f"{SD_BATCH} on {pipe.device}: train loss {metrics[0]['train_loss']:.5f} -> "
+              f"{metrics[-1]['train_loss']:.5f}, step_ms {metrics[-1].get('step_ms')}; the new "
+              f"policy (route {served.route}) served, {pp} kernel 8 launch, finite "
+              f"{bool(torch.isfinite(act).all())}; wall {wall_sd:.2f} s; launches {launches} "
+              f"({card})", flush=True)
+        if len(agg) != len(db) + n_exp or n_exp <= 0:
+            fail(f"28 pipeline: aggregate {len(agg)} != {len(db)} + {n_exp} expert rows")
+        if final == path or "step_ms" not in metrics[-1] or len(metrics) != SD_EPOCHS:
+            fail(f"28 pipeline: no training on the card ({final}, {metrics[-1]})")
+        if served.route != "kernel" or pp != 1 or not bool(torch.isfinite(act).all()):
+            fail(f"28 pipeline: the new policy did not serve through kernel 8 ({served.route}, "
+                 f"{pp} launches)")
+        if min(launches[n] for n in ("dyncore", "riccati_rollout", "dynjac", "policy_pd")) <= 0:
+            fail(f"28 pipeline: kernels 1, 3, 7 and 8 must launch: {launches}")
+
+        # (e) the train_bc CLI on (c)'s snapshot, as a subprocess
+        save = os.path.join(tmp, "bc")
+        cmd = [sys.executable, "-m", "iterative_learning_nmpc_tpu_torch.examples.train_bc",
+               "--dataset", dc_path, "--epochs", str(TRAIN_EPOCHS), "--batch_size", "256",
+               "--save_dir", save, "--run_name", "smoke", "--device", str(dev)]
+        t0 = time.perf_counter()
+        try:
+            r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                               timeout=CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"train_bc ran past {CLI_TIMEOUT_S} s")
+        if r.returncode != 0:
+            fail(f"train_bc exited {r.returncode}:\n{(r.stdout + r.stderr)[-3000:]}")
+        line = [ln for ln in r.stdout.splitlines() if ln.startswith("launches")][-1]
+        cli = dict.fromkeys(total, 0)
+        cli.update({n: int(c) for n, c in re.findall(r"(\w+) (\d+)", line.split(":", 1)[1])})
+        cfg_t = load_config(TrainConfig, os.path.join(save, "config_smoke.yaml"))
+        want = TrainConfig(n_epochs=TRAIN_EPOCHS, batch_size=256, save_dir=save,
+                           run_name="smoke")
+        print(f"[28 cli] train_bc on {os.path.basename(dc_path)}: "
+              + "; ".join(ln for ln in r.stdout.splitlines() if ln.startswith("final policy"))
+              + f"; config_smoke.yaml read back by the port's load_config equal "
+              f"{cfg_t == want}; {time.perf_counter() - t0:.1f} s; launches {cli}", flush=True)
+        if cfg_t != want or not os.path.exists(os.path.join(save, "policy_smoke_final.pkl")):
+            fail(f"train_bc: config {cfg_t} != {want} or no final policy")
+    finally:
+        for m_, sim in installed.items():
+            m_.Simulator = sim
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[28] launches {total}; phase 28 wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"28": total, "28 cli": cli}
 
 
 def main() -> None:
@@ -2958,6 +3406,8 @@ def main() -> None:
     by_phase.update(scale_phase(dev, card, kernels))
     # ---- 27. the host controllers, push recovery and turning, run_mpc ----
     by_phase.update(host_loop_phase(dev, card, kernels))
+    # ---- 28. the host-side learning pipeline on the device plant ----
+    by_phase.update(learning_pipeline_phase(dev, card, kernels))
     for r in results:
         r["launches_by_phase"] = {ph: c[r["name"]] for ph, c in by_phase.items()}
     next(r for r in results if r["name"] == "policy_pd")["launches_by_phase"]["25"] = ws

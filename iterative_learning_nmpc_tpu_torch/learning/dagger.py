@@ -1,10 +1,21 @@
-"""LocoSafeDAgger on the device: collect -> relabel -> aggregate -> retrain
--> serve, with the data step a batch of on-device combined-controller
-rollouts.
+"""LocoSafeDAgger: iterative expert-relabeled imitation learning.
 
-Counterpart of ``OnDeviceSafeDagger`` in
-``iterative_learning_nmpc_tpu/learning/dagger.py``. One
-``ondevice.make_batched_mpc_rollout`` in SafeDAgger mode serves every
+Counterpart of ``iterative_learning_nmpc_tpu/learning/dagger.py``:
+
+- ``SafeDaggerDataCollection`` (the reference's
+  ``DAgger/utils/data_collection_locosafedagger.py:22-231``): one
+  combined-controller rollout in the host MuJoCo plant
+  (``rollouts.rollout_combined``: the policy served on ``device``, the MPC
+  expert on the same device), keep ONLY the expert-labeled steps,
+  aggregate them with the previous dataset into ``agg_dataset.npz``,
+  report the expert-influence ratio.
+- ``SafeDaggerPipeline`` (``DAgger/example/iter_locosafedagger.py:16-112``):
+  (collect -> aggregate -> train)^n per velocity goal, threading policy and
+  dataset paths between stages; training warm-starts from the current
+  policy (``train.BehavioralCloning`` on ``device``).
+- ``OnDeviceSafeDagger``: the same loop with the data step a batch of
+  on-device combined-controller rollouts. One
+  ``ondevice.make_batched_mpc_rollout`` in SafeDAgger mode serves every
 iteration; each iteration's retrained weights and normalisation statistics
 enter it through ``policy_update``. A data step keeps the rows where the
 environment was valid and the expert in control, aggregates them with the
@@ -17,7 +28,7 @@ With ``randomize`` each data step draws its own domain randomization
 seeded as the JAX package seeds its keys: the plants carry it, the expert's
 model stays nominal.
 
-The aggregate is written as ``agg_dataset.npz`` (``database.Database``'s
+Both write the aggregate as ``agg_dataset.npz`` (``database.Database``'s
 npz snapshot), where the JAX package writes ``agg_dataset.hdf5``: the GPU
 machines the port runs on need not have ``h5py``. An ``initial_dataset``
 is read by its suffix (.hdf5 or .npz).
@@ -34,7 +45,7 @@ import torch
 from ..device import resolve_device
 from ..models.dynamics import settled_state
 from ..robots.spec import RobotSpec
-from . import ondevice
+from . import ondevice, rollouts
 from .database import Database
 from .network import load_policy
 from .randomize import randomize_payload, randomize_terrain, sample_force_windows
@@ -64,6 +75,106 @@ class SafeDaggerConfig:
     x0_vel_noise: float = 0.0
     # an optional tighter monitor height band for drift-triggered relabeling
     unsafe_height_bounds: Optional[Sequence[float]] = None
+
+
+def open_database(cfg: SafeDaggerConfig, path: Optional[str]) -> Database:
+    """A ``Database`` of ``cfg.database_size`` rows, loaded from ``path``
+    where that file exists."""
+    db = Database(limit=cfg.database_size, goal_type="vc")
+    if path is not None and os.path.exists(path):
+        db.load(path)
+    return db
+
+
+class SafeDaggerDataCollection:
+    """One DAgger data step in the host MuJoCo plant, the controllers on
+    ``device`` (by default the CUDA card)."""
+
+    def __init__(self, spec: RobotSpec, cfg: SafeDaggerConfig, device=None):
+        self.spec = spec
+        self.cfg = cfg
+        self.device = device
+        self.expert_ratio_history: List[float] = []
+
+    def collect(self, policy_path: str, v_des, prev_dataset: Optional[str],
+                tag: str) -> Optional[str]:
+        """One DAgger data step: rollout, filter expert rows, aggregate into
+        ``record_dir/tag/agg_dataset.npz``. With no row at all (no expert
+        step and no previous dataset) there is nothing to write, and the
+        previous dataset (None) is returned, as ``OnDeviceSafeDagger``
+        does; the JAX package fails writing the empty snapshot there."""
+        cfg = self.cfg
+        out_dir = os.path.join(cfg.record_dir, tag)
+        os.makedirs(out_dir, exist_ok=True)
+        rollout = rollouts.rollout_combined(
+            self.spec, policy_path, sim_time=cfg.sim_time,
+            v_des=np.asarray(v_des), gait_name=cfg.gait_name,
+            record_dir=out_dir, monitor=cfg.monitor,
+            delay_steps=cfg.delay_steps, mpc_min_steps=cfg.mpc_min_steps,
+            device=self.device,
+        )
+        rec = rollout.recorder
+        is_expert = np.asarray(rec.data["is_expert"], dtype=bool)
+        ratio = float(is_expert.mean()) if len(is_expert) else 0.0
+        self.expert_ratio_history.append(ratio)
+        print(f"[dagger] {tag}: expert-influence ratio {ratio:.3f} "
+              f"({is_expert.sum()}/{len(is_expert)} steps)")
+
+        db = open_database(cfg, prev_dataset)
+        if is_expert.any():
+            # keep only expert-labeled timesteps (reference `:179-206`)
+            rows = {k: np.asarray(rec.data[k])[is_expert]
+                    for k in ("state", "action", "vc_goals", "cc_goals", "time")}
+            db.append(rows["state"], rows["action"], vc_goals=rows["vc_goals"],
+                      cc_goals=rows["cc_goals"],
+                      traj_id=np.full(int(is_expert.sum()), len(self.expert_ratio_history)),
+                      times=rows["time"])
+        if len(db) == 0:
+            print(f"[dagger] {tag}: no expert rows collected")
+            return prev_dataset
+        return db.save_as_npz(os.path.join(out_dir, "agg_dataset.npz"), config=cfg)
+
+
+def train_on(cfg: SafeDaggerConfig, dataset_path: str, policy_path: str, tag: str,
+             device) -> str:
+    """Warm-started training on an aggregate; below ``batch_size`` rows the
+    current policy stays."""
+    db = open_database(cfg, dataset_path)
+    if len(db) < cfg.batch_size:
+        print(f"[dagger] {tag}: dataset too small ({len(db)}), skip training")
+        return policy_path
+    tc = TrainConfig(learning_rate=cfg.learning_rate, batch_size=cfg.batch_size,
+                     n_epochs=cfg.n_epochs, save_dir=os.path.join(cfg.record_dir, "policies"),
+                     run_name=tag, seed=cfg.seed)
+    return BehavioralCloning(tc, device=device).run(db, warm_start_path=policy_path)
+
+
+class SafeDaggerPipeline:
+    """The outer iterative-learning loop (reference ``iter_locosafedagger.py``)
+    over host MuJoCo rollouts; rollouts and training on ``device``."""
+
+    def __init__(self, spec: RobotSpec, cfg: SafeDaggerConfig, initial_policy: str,
+                 initial_dataset: Optional[str] = None, device=None):
+        self.spec = spec
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.policy_path = initial_policy
+        self.dataset_path = initial_dataset
+        self.collector = SafeDaggerDataCollection(spec, cfg, device=self.device)
+
+    def run_training(self, dataset_path: str, tag: str) -> str:
+        return train_on(self.cfg, dataset_path, self.policy_path, tag, self.device)
+
+    def run(self) -> str:
+        """(collect -> train) x n_iterations per goal; returns the final
+        policy's path."""
+        for gi, goal in enumerate(self.cfg.goals):
+            for it in range(self.cfg.n_iterations_per_goal):
+                tag = f"goal{gi}_iter{it}"
+                self.dataset_path = self.collector.collect(
+                    self.policy_path, goal, self.dataset_path, tag)
+                self.policy_path = self.run_training(self.dataset_path, tag)
+        return self.policy_path
 
 
 class OnDeviceSafeDagger:
@@ -105,12 +216,6 @@ class OnDeviceSafeDagger:
     def _load_update(self, path: str):
         """(net, norm) of a payload, for ``policy_update``."""
         return load_policy(path, device=self.device)
-
-    def _database(self, path: Optional[str]) -> Database:
-        db = Database(limit=self.cfg.database_size, goal_type="vc")
-        if path is not None and os.path.exists(path):
-            db.load(path)
-        return db
 
     def draw_randomization(self):
         """(plant_spec, terrain, force_windows) of the next data step, from
@@ -162,7 +267,7 @@ class OnDeviceSafeDagger:
         print(f"[dagger] {tag}: expert-influence ratio {ratio:.3f} "
               f"({int(keep.sum())}/{n_steps} valid steps, {B} envs)")
 
-        db = self._database(prev_dataset)
+        db = open_database(self.cfg, prev_dataset)
         if keep.any():
             flat, flat_d = keep.reshape(-1), keep_d.reshape(-1)
             states = out.state44.reshape(-1, 44)[flat_d].cpu().numpy()
@@ -179,17 +284,8 @@ class OnDeviceSafeDagger:
         return db.save_as_npz(os.path.join(out_dir, "agg_dataset.npz"), config=cfg)
 
     def run_training(self, dataset_path: str, tag: str) -> str:
-        """Warm-started training on the aggregate; below ``batch_size`` rows
-        the current policy stays."""
-        cfg = self.cfg
-        db = self._database(dataset_path)
-        if len(db) < cfg.batch_size:
-            print(f"[dagger] {tag}: dataset too small ({len(db)}), skip training")
-            return self.policy_path
-        tc = TrainConfig(learning_rate=cfg.learning_rate, batch_size=cfg.batch_size,
-                         n_epochs=cfg.n_epochs, save_dir=os.path.join(cfg.record_dir, "policies"),
-                         run_name=tag, seed=cfg.seed)
-        return BehavioralCloning(tc, device=self.device).run(db, warm_start_path=self.policy_path)
+        """Warm-started training on the aggregate (``train_on``)."""
+        return train_on(self.cfg, dataset_path, self.policy_path, tag, self.device)
 
     def run(self) -> str:
         """(collect -> train) x n_iterations per goal; returns the final

@@ -182,6 +182,14 @@ def save_policy_bundle(path: str, entries) -> str:
     return path
 
 
+def _nearest_member(entries, v_des) -> int:
+    """The index of the bundle member whose training goal is nearest v_des."""
+    v = np.asarray(v_des, np.float64).reshape(-1)[:3]
+    d = [float(np.linalg.norm(np.asarray(e["goal"], np.float64)[: len(v)] - v))
+         for e in entries]
+    return int(np.argmin(d))
+
+
 def read_payload(path: str, v_des=None) -> dict:
     """The payload dict of a policy pickle. A goal-scheduled bundle gives
     the member whose training goal is nearest ``v_des``; without ``v_des``
@@ -198,10 +206,23 @@ def read_payload(path: str, v_des=None) -> dict:
             f"member (goal {entries[0]['goal']}). Pass v_des to select "
             "a member explicitly.", stacklevel=3)
         return entries[0]["payload"]
-    v = np.asarray(v_des, np.float64).reshape(-1)[:3]
-    d = [float(np.linalg.norm(np.asarray(e["goal"], np.float64)[: len(v)] - v))
-         for e in entries]
-    return entries[int(np.argmin(d))]["payload"]
+    return entries[_nearest_member(entries, v_des)]["payload"]
+
+
+def payload_members(path: str, goals):
+    """The payloads that serve a batch of goals (E, 3): (payloads, member
+    (E,)), row e served by ``payloads[member[e]]``, the bundle member
+    nearest that row's goal as ``read_payload`` picks it; a plain payload
+    serves every row."""
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    goals = np.asarray(goals, np.float64).reshape(-1, 3)
+    if "bundle" not in payload:
+        return [payload], np.zeros(len(goals), np.int64)
+    entries = payload["bundle"]
+    idx = np.array([_nearest_member(entries, g) for g in goals], np.int64)
+    used = np.unique(idx)
+    return [entries[i]["payload"] for i in used], np.searchsorted(used, idx)
 
 
 def load_policy(path: str, v_des=None, device=None):

@@ -56,6 +56,50 @@ from ..solver.warmstart import contact_windows, merit_phase_boot, peak_windows
 from ..utils.profiling import print_timings, time_fn
 
 
+class SolverDiverged(RuntimeError):
+    """A plan whose cost is not finite: the solver diverged."""
+
+
+def velocity_tracking_refs(q: np.ndarray, ref_xy, ref_yaw: float, v_des, w_des,
+                           height: float, t_horizon: float, frame_yaw=None):
+    """The velocity-tracking running and terminal base references (12,) each
+    of one chart state ``q``: the terminal one at the tracked reference
+    (``ref_xy``, ``ref_yaw``) advanced by the command over the horizon, the
+    running one three quarters of the way there from the rounded base
+    position, at ``height``, roll, pitch and the terminal vertical motion
+    flat. ``v_des`` is the body-frame command, turned into the world by
+    ``frame_yaw`` (the integrated command's yaw; ``ref_yaw`` when None) and
+    rounded to 0.01 m/s as the JAX package does; ``w_des`` is [wx, wy, wz].
+    ``LocomotionMPC`` and ``learning/plant_batch`` both assemble their
+    references here."""
+    frame_yaw = ref_yaw if frame_yaw is None else frame_yaw
+    base_ref = np.zeros(12)
+    base_ref[:2] = np.round(q[:2], 2)
+    base_ref[2] = height
+    base_ref[3] = round(q[3], 1)
+
+    R_WB = tnp.ypr_to_matrix(np.array([frame_yaw, 0.0, 0.0]))
+    v_des_glob = np.round(R_WB @ v_des, 2)
+    base_ref[6:9] = v_des_glob
+    # chart angular slots are [yaw, pitch, roll] rates; w_des is [wx, wy, wz]
+    base_ref[9:12] = w_des[::-1]
+
+    base_ref_e = base_ref.copy()
+    R_yaw = tnp.ypr_to_matrix(np.array([w_des[2] * t_horizon, 0.0, 0.0]))
+    base_ref_e[6:9] = R_yaw @ base_ref[6:9]
+    base_ref_e[:2] = ref_xy[:2] + v_des_glob[:2] * t_horizon
+    base_ref_e[3] = ref_yaw + w_des[2] * t_horizon
+    # intermediate running reference
+    base_ref[:2] += (base_ref_e[:2] - base_ref[:2]) * 0.75
+    base_ref[3] += (base_ref_e[3] - base_ref[3]) * 0.75
+    # flatten roll/pitch and the terminal vertical motion
+    base_ref_e[8] = 0.0
+    base_ref_e[4:6] = 0.0
+    base_ref[4:6] = 0.0
+    base_ref_e[10:12] = 0.0
+    return base_ref, base_ref_e
+
+
 class LocomotionMPC:
     """Velocity-tracking whole-body MPC for a quadruped."""
 
@@ -151,10 +195,15 @@ class LocomotionMPC:
     # ------------------------------------------------------------------
     def _plan(self, X_prev, U_prev, lam_prev, lami_prev, shift: int, params,
               n_iter: int):
-        """The device part of a replan for one problem (a batch of one):
-        shifted warm start, solve, multiplier update, interpolated plan and
-        the feed-forward torques along it (the plan function that the JAX
-        controller's ``_build_plan_fn`` jits)."""
+        """The device part of a replan for a batch of problems (the
+        controller's own replans are a batch of one; ``learning/plant_batch``
+        plans one problem per environment in the same call): shifted warm
+        start, solve, multiplier update, interpolated plan and the
+        feed-forward torques along it (the plan function that the JAX
+        controller's ``_build_plan_fn`` jits and its batched collector
+        vmaps). Returns (sol, lam_eq, (q, v, a, f, tau_ff)), each plan
+        (B, n_interp, ...); the nodes' dt are the config's, shared by the
+        batch."""
         solver, N = self.solver, self.config_opt.n_nodes
         X_ws, U_ws = solver.shift_warmstart(X_prev, U_prev, shift)
         X_ws = torch.cat([params.x0[:, None], X_ws[:, 1:]], dim=1)
@@ -162,12 +211,15 @@ class LocomotionMPC:
                                 lam_ineq=solver.shift_multipliers(lami_prev, shift))
         sol = solver.solve(X_ws, U_ws, params, n_iter)
         lam_new = solver.update_multipliers(sol.X, sol.U, params, r_eq=sol.r_eq)
-        X, U = sol.X[0], sol.U[0]
-        a, f = U[:, :18], U[:, 18:30].reshape(N, self.n_foot, 3)
-        q_plan, v_plan, id_rep = interpolate_plan(X[:, :18], X[:, 18:], a,
-                                                  params.dt[0], self.n_interp_plan)
-        a_plan, f_plan = a[id_rep], f[id_rep]
-        tau_ff = dyn.id_torques(self.spec, q_plan, v_plan, a_plan, f_plan)
+        B, n = sol.X.shape[0], self.n_interp_plan
+        a, f = sol.U[..., :18], sol.U[..., 18:30].reshape(B, N, self.n_foot, 3)
+        q_plan, v_plan, id_rep = interpolate_plan(sol.X[..., :18], sol.X[..., 18:], a,
+                                                  params.dt[0], n)
+        a_plan, f_plan = a[:, id_rep], f[:, id_rep]
+        # RNEA over the (B * n) plan rows, one batch dim as at B = 1
+        tau_ff = dyn.id_torques(self.spec, q_plan.reshape(B * n, -1), v_plan.reshape(B * n, -1),
+                                a_plan.reshape(B * n, -1),
+                                f_plan.reshape(B * n, self.n_foot, 3)).reshape(B, n, -1)
         return sol, lam_new, (q_plan, v_plan, a_plan, f_plan, tau_ff)
 
     # ------------------------------------------------------------------
@@ -267,39 +319,16 @@ class LocomotionMPC:
         self.base_ref_vel_tracking[3] += self.w_des[2] * self.sim_dt
 
     def compute_base_ref_vel_tracking(self, q: np.ndarray):
-        """Velocity-tracking running and terminal base references."""
-        t_horizon = self.config_opt.time_horizon
-        base_ref = np.zeros(12)
-        base_ref[:2] = np.round(q[:2], 2)
-        base_ref[2] = self.config_gait.nom_height + self.height_offset
-        base_ref[3] = round(q[3], 1)
-
-        R_WB = tnp.ypr_to_matrix(np.array([self.base_ref_vel_tracking[3], 0.0, 0.0]))
-        v_des_glob = np.round(R_WB @ self.v_des, 2)
-        base_ref[6:9] = v_des_glob
-        # chart angular slots are [yaw, pitch, roll] rates; w_des is [wx, wy, wz]
-        base_ref[9:12] = self.w_des[::-1]
-
-        base_ref_e = base_ref.copy()
-        R_yaw = tnp.ypr_to_matrix(np.array([self.w_des[2] * t_horizon, 0.0, 0.0]))
-        base_ref_e[6:9] = R_yaw @ base_ref[6:9]
+        """Velocity-tracking running and terminal base references: toward the
+        integrated command, or with a teleop goal toward the measured base."""
+        brvt = self.base_ref_vel_tracking
         if self.velocity_goal is not None:
-            pos_ref = np.round(q[:3], 2)
-            yaw_ref = q[3]
+            ref_xy, ref_yaw = np.round(q[:3], 2)[:2], q[3]
         else:
-            pos_ref = self.base_ref_vel_tracking[:3]
-            yaw_ref = self.base_ref_vel_tracking[3]
-        base_ref_e[:2] = pos_ref[:2] + v_des_glob[:2] * t_horizon
-        base_ref_e[3] = yaw_ref + self.w_des[2] * t_horizon
-        # intermediate running reference
-        base_ref[:2] += (base_ref_e[:2] - base_ref[:2]) * 0.75
-        base_ref[3] += (base_ref_e[3] - base_ref[3]) * 0.75
-        # flatten roll/pitch and the terminal vertical motion
-        base_ref_e[8] = 0.0
-        base_ref_e[4:6] = 0.0
-        base_ref[4:6] = 0.0
-        base_ref_e[10:12] = 0.0
-        return base_ref, base_ref_e
+            ref_xy, ref_yaw = brvt[:2], brvt[3]
+        return velocity_tracking_refs(q, ref_xy, ref_yaw, self.v_des, self.w_des,
+                                      self.config_gait.nom_height + self.height_offset,
+                                      self.config_opt.time_horizon, frame_yaw=brvt[3])
 
     def compute_base_ref_cnt_restricted(self, q: np.ndarray, cnt_loc: np.ndarray):
         """Running and terminal base references from a footstep plan
@@ -414,7 +443,7 @@ class LocomotionMPC:
         n = self.n_interp_plan
         host = torch.cat([t.reshape(-1) for t in plan] + [sol.stats.cost]).cpu().numpy()
         if not np.isfinite(host[-1]):
-            raise RuntimeError(f"solver diverged: {sol.stats}")
+            raise SolverDiverged(f"solver diverged: {sol.stats}")
         out, i = [], 0
         for shape in ((n, self.nv), (n, self.nv), (n, self.nv), (n, self.n_foot, 3),
                       (n, self.nu)):

@@ -35,14 +35,17 @@ def interpolate_plan(q_sol, v_sol, a_sol, dt_sol, n_interp: int):
     """(q_plan, v_plan, id_repeat): q Hermite-interpolated with derivative
     v, v with derivative a (a's first row repeated), at n_interp uniform
     steps after the initial state; id_repeat the zero-order-hold node index
-    of each step for the inputs."""
-    N = a_sol.shape[0]
+    of each step for the inputs. q_sol, v_sol (..., N+1, D) and a_sol
+    (..., N, D) may carry leading batch dims; the node durations dt_sol
+    (N,) are shared."""
+    N = a_sol.shape[-2]
     t_knots = torch.cat([torch.zeros(1, dtype=dt_sol.dtype, device=dt_sol.device),
                          torch.cumsum(dt_sol, 0)])
     t_query = torch.linspace(float(t_knots[0]), float(t_knots[-1]), n_interp + 1,
                              dtype=dt_sol.dtype, device=dt_sol.device)[1:]
     q_plan = hermite_interp(t_knots, q_sol, v_sol, t_query)
-    v_plan = hermite_interp(t_knots, v_sol, torch.cat([a_sol[:1], a_sol]), t_query)
+    v_plan = hermite_interp(t_knots, v_sol, torch.cat([a_sol[..., :1, :], a_sol], dim=-2),
+                            t_query)
     id_repeat = (torch.linspace(0.0, 1.0, n_interp, device=dt_sol.device)
                  * (N - 1)).to(torch.int64)
     return q_plan, v_plan, id_repeat

@@ -124,7 +124,9 @@ def graphed(fn, *example):
     ``fn`` launches, in the same order, with none of the host's per-launch
     cost (the eager plant step is host-bound: ~3,800 launches). ``fn`` may
     not copy from the host or wait for the device (``device_sim.step``
-    does neither). On CPU tensors ``call`` is ``fn``."""
+    does neither). ``call`` holds ``fn``, so the tensors it closes over
+    live as long as the graph that reads them. On CPU tensors ``call`` is
+    ``fn``."""
     if example[0].device.type != "cuda":
         return fn
     inputs = [t.clone() for t in example]
@@ -143,6 +145,11 @@ def graphed(fn, *example):
         graph.replay()
         return outputs
 
+    # the graph reads the tensors fn closes over (the spec, the contact
+    # parameters) where they lay at capture: keep fn, and so them, alive as
+    # long as the graph, or their memory goes back to the allocator and the
+    # replays read whatever is put there next
+    call.fn = fn
     return call
 
 

@@ -121,6 +121,12 @@ class Simulator:
         self.data.qvel[:] = v_mj
         self._mj.mj_forward(self.model, self.data)
 
+    def step(self) -> None:
+        """One ``mj_step`` with ``data.ctrl`` and ``data.xfrc_applied`` as
+        they are set: the plant step that ``run`` and
+        ``learning/plant_batch`` share."""
+        self._mj.mj_step(self.model, self.data)
+
     # ------------------------------------------------------------------
     def feet_in_contact(self) -> List[str]:
         """Feet currently touching the floor (reference contact detection,
@@ -205,7 +211,7 @@ class Simulator:
             if data_recorder is not None and step % record_step == 0:
                 data_recorder.record(self.data)
 
-            mujoco.mj_step(self.model, self.data)
+            self.step()
 
             if renderer is not None and step % frame_every == 0:
                 renderer.update_scene(self.data)
