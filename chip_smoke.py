@@ -54,7 +54,7 @@ rows, and the on-device SafeDAgger loop). Phases, one line each:
      JAX network's class default; its output bias the standing joint
      angles), which kernel 8 does not take: finite states, policy_pd_dense
      once per step and policy_pd never,
- 12. on-device expert datagen: 256 envs x 20 replanning intervals (0.8 s),
+ 12. on-device expert datagen: 256 envs x 10 replanning intervals (0.4 s),
      counters set to 0 before it: the dataset gates of
      tests/test_ondevice.py, the batch solver's kernels launched,
  10. policy_pd against its plain twin (the fp32 addmm chain on cuBLAS) at
@@ -92,7 +92,8 @@ rows, and the on-device SafeDAgger loop). Phases, one line each:
      counters as above (lingram and the fused kernel must not run); the
      sweep kernel against its twin, and the rollout kernel on its gains,
      timed; one RTI step against the N=25 golden,
- 16. riccati_mode="sequential" and "associative" raise NotImplementedError,
+ 16. riccati_mode="associative" with enable_time_opt raises ValueError
+     (the scan takes constant A/B; the modes themselves run in phase 29),
  17. the bf16 policy (make_fused_policy_pd with compute_dtype=bfloat16, on
      the tensor cores) on phase 10's observations at B = 256, 1000 and 4096,
      and seeded nets of hidden widths (132, 100, 260) and 3 x 1024 at
@@ -213,6 +214,32 @@ rows, and the on-device SafeDAgger loop). Phases, one line each:
      snapshot as a subprocess ("28 cli"): its config_smoke.yaml, written
      without PyYAML, read back by the port's load_config to the same
      TrainConfig.
+ 29. the solver's last options, the counters set to 0 before and read
+     after: (1) the time-optimal mode (the flagship with enable_time_opt,
+     the JAX bench's instance): the 15-iteration solve from the cold start
+     and one RTI step from the golden's converged point at B=1 and B=256
+     (replicated) within REL_GATE of tests/data/go2_trot_time_opt_golden.npz
+     (scripts/make_torch_time_opt_golden.py), the rows' spread <= 1e-5,
+     tests/test_time_opt.py's checks (durations in their bounds and not
+     all equal, true defects, base height); LocomotionMPC in the
+     time-optimal mode for 0.5 s on the device plant against the JAX
+     controller on the JAX device plant: the first plan within REL_GATE, q,
+     v and the action within ROW_TOL until the first RTI replan (0.04 s)
+     and within ROW_TOL_RTI over the first 0.1 s, no fall where it did not
+     fall, replan latency and the durations it planned; (2)
+     riccati_mode "pallas", "sequential" and "associative" (dynjac
+     linearization, B=256; sequential also at B=1, kernel 7) one RTI step
+     from the converged points of go2_trot_n25_golden.npz and
+     go2_trot_n100_golden.npz, each timed by CUDA events: pallas and
+     sequential within REL_GATE of the JAX steps; at N=25 the associative
+     gains within the JAX package's fp32 envelope of the sequential ones at
+     the chain's x0 noise, at N=100 its two iterations from the cold start
+     within 0.3 of sequential (the JAX package's bound there); solve(use_fast_linearize=True) with jacfwd +
+     pallas (kernel 6) at B=256 within REL_GATE of the jacfwd step; (3)
+     kernel 1's feet and torques, the structured mass matrix and foot
+     Jacobians at 4,096 random states of Go2 and of Solo12 against
+     models/tree_dynamics in float64 on the card. Kernels 1, 2, 6 and 7
+     must launch.
 
 It then prints one JSON line with the kernels' results (each with its
 bound: the larger of its operations over the card's fp32 rate, bf16
@@ -249,7 +276,10 @@ OTHER_NETS, T_OTHER = ((4, 256, "dense"), (3, 1024, "kernel")), 200
 # feedback), so which envs fall is not reproducible across fp32 libraries:
 # the JAX package on the CPU drops 0, 1, 2, 4, 4 of 256 over noise seeds 0-4
 MAX_FALLS = 8
-N_DATAGEN, N_DAGGER = 20, 8               # replanning intervals of 40 ms
+# replanning intervals of 40 ms (N_DATAGEN was 20 until phase 29 joined: cut
+# to keep the script near 820 s on the slower hosts, 60.8 s of phase 12's
+# wall at 20 on an H100 80GB HBM3 at 700 W)
+N_DATAGEN, N_DAGGER = 10, 8
 DELAY_STEPS, MPC_MIN_STEPS = 20, 60
 POLICY_KP, POLICY_KD = 20.0, 1.5
 # the long-horizon and jacfwd routes (phases 14-15)
@@ -847,7 +877,7 @@ def rollout_case(a5, card):
 def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launches,
                          record) -> dict:
     """Phases 14-16 on ``dev``: the long-horizon split route (kernels 4 and
-    5), the pallas + jacfwd route (kernels 6 and 5) and the refusals;
+    5), the pallas + jacfwd route (kernels 6 and 5) and the refusal;
     ``record`` adds the three kernels' lines (launches from 14 for kernels 4
     and 5, from 15 for kernel 6). Returns lingram's numbers at N=100 for
     its line."""
@@ -1047,16 +1077,16 @@ def riccati_route_phases(dev, card, solver, conv, params, golden, kernels, launc
     if not du <= REL_GATE:
         fail(f"the jacfwd-route RTI step differs from the JAX golden by {du:.2e}")
 
-    # ---- 16. the modes the port has not ported ----
-    for mode in ("sequential", "associative"):
-        try:
-            TrajOptSolver(solver.spec, dataclasses.replace(solver.opt, riccati_mode=mode),
-                          solver.cost, device=dev)
-        except NotImplementedError:
-            continue
-        fail(f"riccati_mode={mode!r} did not raise NotImplementedError")
-    print("[modes] riccati_mode 'sequential' and 'associative' raise "
-          "NotImplementedError", flush=True)
+    # ---- 16. the one pair of options the solver refuses ----
+    try:
+        TrajOptSolver(solver.spec, dataclasses.replace(solver.opt, riccati_mode="associative",
+                                                       enable_time_opt=True),
+                      solver.cost, device=dev)
+        fail("riccati_mode='associative' with enable_time_opt did not raise ValueError")
+    except ValueError:
+        pass
+    print("[modes] riccati_mode 'associative' with enable_time_opt raises ValueError (the "
+          "modes run in phase 29)", flush=True)
     return n100
 
 
@@ -1726,7 +1756,7 @@ class DevicePlantSimulator:
                 if self.data.geom_xpos[i, 2] <= self._foot_r + 2e-3]
 
 
-def plant_loop(dev, spec, mpc, q0, seconds, pushes=(), sim=None):
+def plant_loop(dev, spec, mpc, q0, seconds, pushes=(), sim=None, trace=None):
     """``mpc`` (any controller with ``compute_torques_dof`` and
     ``torques_dof``) on the device plant for ``seconds`` at 1 kHz from (q0,
     0), through ``compute_torques_dof`` as phase 8 couples them: the
@@ -1734,7 +1764,9 @@ def plant_loop(dev, spec, mpc, q0, seconds, pushes=(), sim=None):
     policy controller was built on, or a new one) and the plant steps by
     ``sim.step()``, one replay of its ``PlantGraph``. ``pushes`` are (start,
     end, (3,) world force on the base) windows, as the MuJoCo simulator's
-    force schedule. Returns the chart states (steps + 1, 18) and the wall."""
+    force schedule. Returns the chart states (steps + 1, 18) and the wall;
+    a ``trace`` dict gains each step's chart velocity ("v") and joint
+    torques ("tau")."""
     import numpy as np
 
     from iterative_learning_nmpc_tpu_torch.models import transforms_np as tnp
@@ -1756,6 +1788,9 @@ def plant_loop(dev, spec, mpc, q0, seconds, pushes=(), sim=None):
                 push += force
         sim.data.ctrl[:] = mpc.torques_dof[-nu:]
         sim.data.xfrc_applied[sim.trunk_body, :3] = push
+        if trace is not None:
+            trace.setdefault("v", []).append(sim._v.copy())
+            trace.setdefault("tau", []).append(sim.data.ctrl.copy())
         sim.step()
     qs[n] = sim._q
     return qs, time.perf_counter() - t0
@@ -2992,6 +3027,326 @@ def learning_pipeline_phase(dev, card, kernels) -> dict:
     return {"28": total, "28 cli": cli}
 
 
+# phase 29: the solver's last options. The time-optimal mode, the
+# sequential and associative sweeps, the fast linearization and the tree
+# oracle, held to tests/data/go2_trot_time_opt_golden.npz
+# (scripts/make_torch_time_opt_golden.py), go2_trot_n{25,100}_golden.npz and
+# the tree dynamics in float64 on the card. TOPT_B: the bench's replicated
+# batch; ASSOC_ENVELOPE: the JAX package's fp32 envelope of the associative
+# gains at N = 25 (tests/test_parallel_riccati.py:52-86), ASSOC_N100_REL
+# its N = 100 bound, on two iterations' U (:153), where its docstring puts
+# the composition's fp32 round-off at ~1e-1 (at N = 100 the gains are
+# printed: kff 2.36e-2 from sequential, K 7.05e-3, on an H100 80GB HBM3 at
+# 700 W);
+# the oracle's states and bounds are tests/test_structured_dynamics.py's
+# The closed loop against the JAX run: ROW_TOL (tests/test_torch_dagger_
+# pipeline.py's) holds while both run their first plans (TOPT_FIRST_S, up
+# to the first RTI replan); over TOPT_EARLY_S q keeps its bound and v and
+# the action take ROW_TOL_RTI, about three times the CPU's reading (1.94e-2,
+# 2.78e-2): from identical inputs the two packages' fp32 RTI replans there
+# are 2.2e-2 apart and each 6.8e-2 from the float64 step
+# (scripts/time_opt_replan_conditioning_torch.py)
+TOPT_B, TOPT_LOOP_S, TOPT_FIRST_S, TOPT_EARLY_S = 256, 0.5, 0.04, 0.1
+ROW_TOL = {"q": 1e-4, "v": 1e-2, "action": 5e-3}
+ROW_TOL_RTI = {"q": 1e-4, "v": 6e-2, "action": 9e-2}
+ASSOC_ENVELOPE, ASSOC_N100_REL, MODE_B = 2e-2, 0.3, 256
+ORACLE_M, ORACLE_P_ATOL, ORACLE_TAU = 4096, 1e-5, (2e-4, 2e-3)
+
+
+class time_opt_configs:
+    """The controller module's configurations with ``enable_time_opt`` set,
+    while in the ``with`` block: how a ``LocomotionMPC`` is built in the
+    time-optimal mode (the golden's JAX controller is built so)."""
+
+    def __enter__(self):
+        from iterative_learning_nmpc_tpu_torch.mpc import controller as cm
+
+        self.module, self.orig = cm, cm.get_quadruped_config
+
+        def configs(*a, **k):
+            gait, opt, cost = self.orig(*a, **k)
+            opt.enable_time_opt = True
+            return gait, opt, cost
+
+        cm.get_quadruped_config = configs
+        return self
+
+    def __exit__(self, *exc):
+        self.module.get_quadruped_config = self.orig
+
+
+def per_problem(a, b) -> float:
+    """max over problems of max |a - b| / max |b| (each problem alone)."""
+    dims = tuple(range(1, a.dim()))
+    return float(((a - b).abs().amax(dims) / b.abs().amax(dims)).max())
+
+
+def time_opt_part(dev, card, g):
+    """29 (1): the time-optimal mode against the JAX golden."""
+    import numpy as np
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch import flagship as F
+    from iterative_learning_nmpc_tpu_torch.interop import warm_start_from_numpy
+    from iterative_learning_nmpc_tpu_torch.mpc.controller import LocomotionMPC
+    from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
+
+    solver, X, U, p = F.flagship(device=dev, time_opt=True)
+    dx0 = float(np.abs(p.x0[0].cpu().numpy() - g["x0"]).max())
+    if dx0 > 1e-6 or not np.array_equal(p.cnt[0].cpu().numpy(), g["cnt"]):
+        fail(f"time-opt instance differs from the golden's: x0 {dx0:.2e}")
+    rep = lambda t, B: t.expand((B,) + t.shape[1:]).contiguous()
+    out = {}
+    for B in (1, TOPT_B):
+        Xb, Ub, pb = rep(X, B), rep(U, B), p.map(lambda t: rep(t, B))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = solver.solve(Xb, Ub, pb, 15)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        Xc, Uc, _, li = warm_start_from_numpy(g["conv_X"], g["conv_U"], g["conv_U"][:, :18],
+                                              g["conv_lam_ineq"], device=dev)
+        p1 = pb.replace(lam_ineq=rep(li, B))
+        s1 = solver.solve(rep(Xc, B), rep(Uc, B), p1, 1)
+        ms1 = cuda_time_ms(lambda: solver.solve(rep(Xc, B), rep(Uc, B), p1, 1), 5)
+        du = max(rel(s.U[i].cpu(), torch.as_tensor(g["conv_U"])) for i in range(B))
+        du1 = max(rel(s1.U[i].cpu(), torch.as_tensor(g["rti_U"])) for i in range(B))
+        spread = float((s.U - s.U[:1]).abs().max() / (1.0 + s.U[:1].abs().max()))
+        print(f"[time-opt] B={B}: 15 iterations {wall * 1e3:.1f} ms ({int(s.stats.sqp_iters.max())} "
+              f"SQP iterations, golden {int(g['conv_sqp_iters'])}), rel|dU| vs JAX golden "
+              f"{du:.2e}; RTI step from the golden point {ms1:.3f} ms (CUDA events), rel|dU| "
+              f"{du1:.2e} (gate {REL_GATE}); row spread {spread:.2e} ({card})", flush=True)
+        if not (du <= REL_GATE and du1 <= REL_GATE):
+            fail(f"time-opt B={B}: rel|dU| {du:.2e} / RTI {du1:.2e} > {REL_GATE}")
+        if spread > 1e-5:
+            fail(f"time-opt B={B}: identical rows spread by {spread:.2e}")
+        out[B] = s
+    s = out[1]
+    dt_min, dt_max = solver.opt.get_dt_bounds()
+    dts = s.dt_sol(p.dt)[0].cpu().numpy()
+    defect = float(solver._defects(s.X, s.U, p).abs().max())
+    z = s.X[0, :, 2].cpu().numpy()
+    print(f"[time-opt] dt {dts.min():.4f}..{dts.max():.4f} (bounds {dt_min}..{dt_max}), std "
+          f"{dts.std():.2e}, true defect {defect:.2e}, base z {z.min():.4f}..{z.max():.4f}",
+          flush=True)
+    if not (dts.min() > dt_min - 1e-4 and dts.max() < dt_max + 1e-4 and dts.std() > 1e-5
+            and defect < 1e-2 and z.min() > 0.18 and z.max() < 0.42):
+        fail("time-opt: the solve fails tests/test_time_opt.py's checks")
+
+    # the closed loop on the device plant, against the JAX run on the JAX plant
+    spec = go2_spec(device=dev)
+    first = {}
+
+    class Recording(LocomotionMPC):
+        def optimize(self, q, v):
+            res = super().optimize(q, v)
+            first.setdefault("U", self._U_prev[0].cpu().numpy())
+            return res
+
+    with time_opt_configs():
+        mpc = Recording(spec, gait_name="trot", solve_async=False, device=dev)
+    if not mpc.solver.time_opt:
+        fail("time-opt: the controller was not built in the time-optimal mode")
+    mpc.set_command(g["loop_v_des"])
+    trace = {}
+    try:
+        qs, wall = plant_loop(dev, spec, mpc, g["loop_q0"], TOPT_LOOP_S, trace=trace)
+        error = ""
+    except Exception as e:  # held to the JAX run's outcome below
+        qs, wall, error = None, 0.0, f"{type(e).__name__}: {e}"
+    mpc.close()
+    if error or str(g["loop_error"]):
+        if bool(error) != bool(str(g["loop_error"])):
+            fail(f"time-opt closed loop: error {error!r}, the JAX run's {str(g['loop_error'])!r}")
+        return
+    def gaps(seconds):
+        n = int(round(seconds / mpc.sim_dt))
+        return {"q": float(np.abs(qs[:n] - g["loop_q"][:n]).max()),
+                "v": float(np.abs(np.asarray(trace["v"][:n]) - g["loop_v"][:n]).max()),
+                "action": float(np.abs(np.asarray(trace["tau"][:n]) - g["loop_tau"][:n]).max())}
+
+    first_gaps, early_gaps = gaps(TOPT_FIRST_S), gaps(TOPT_EARLY_S)
+    du_first = rel(torch.as_tensor(first["U"]), torch.as_tensor(g["loop_U"]))
+    t_fall = fall_time(qs, mpc.config_gait.nom_height)
+    dtp = np.asarray(mpc.dt_plan_full)
+    print(f"[time-opt closed loop] {TOPT_LOOP_S} s at {float(g['loop_v_des'][0])} m/s on the "
+          f"device plant: boot offset {mpc.boot_offsets} (JAX {int(g['loop_boot_offset'])}), first "
+          f"plan rel|dU| {du_first:.2e} (gate {REL_GATE}), first {TOPT_FIRST_S} s: "
+          + ", ".join(f"{k} {v:.2e} (<= {ROW_TOL[k]})" for k, v in first_gaps.items())
+          + f"; first {TOPT_EARLY_S} s: "
+          + ", ".join(f"{k} {v:.2e} (<= {ROW_TOL_RTI[k]})" for k, v in early_gaps.items())
+          + f"; fell at {t_fall} (JAX {float(g['loop_fall'])}), base z {qs[:, 2].min():.4f}.."
+          f"{qs[:, 2].max():.4f}, dt_plan_full {dtp.min():.4f}..{dtp.max():.4f} (JAX "
+          f"{g['loop_dt_plan'].min():.4f}..{g['loop_dt_plan'].max():.4f}); {latency(mpc)}; wall "
+          f"{wall:.2f} s ({card})", flush=True)
+    if not du_first <= REL_GATE:
+        fail(f"time-opt first plan rel|dU| {du_first:.2e} > {REL_GATE}")
+    if any(first_gaps[k] > ROW_TOL[k] or early_gaps[k] > ROW_TOL_RTI[k] for k in ROW_TOL):
+        fail(f"time-opt closed loop off the JAX run: first {TOPT_FIRST_S} s {first_gaps}, "
+             f"first {TOPT_EARLY_S} s {early_gaps}")
+    if t_fall is not None and float(g["loop_fall"]) < 0:
+        fail(f"time-opt closed loop fell at {t_fall} s; the JAX run does not")
+
+
+def riccati_modes_part(dev, card):
+    """29 (2): the sequential and associative sweeps against the pallas
+    route, and the fast linearization against the jacfwd step."""
+    import numpy as np
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch import flagship as F
+    from iterative_learning_nmpc_tpu_torch.interop import warm_start_from_numpy
+    from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram
+    from iterative_learning_nmpc_tpu_torch.ops.riccati import (
+        riccati_sweep_structured, terminal_gram)
+    from iterative_learning_nmpc_tpu_torch.solver.parallel_riccati import parallel_riccati
+    from iterative_learning_nmpc_tpu_torch.solver.sqp import TrajOptSolver
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
+
+    for N, name in ((25, "n25"), (100, "n100")):
+        g = load_golden(f"go2_trot_{name}")
+        base, X0, U0, p = F.flagship(device=dev, n_nodes=None if N == 25 else N)
+        X, U, _, li = warm_start_from_numpy(g["X_conv"], g["U_conv"], g["U_conv"][:, :18],
+                                            g["lam_ineq_conv"], device=dev)
+        # the golden's RTI problems (n25: one; n100: its x0_rti rows), tiled
+        x0s = g["x0_rti"] if "x0_rti" in g.files else g["x0"][None]
+        U_ref = g["U_rti"] if g["U_rti"].ndim == 3 else g["U_rti"][None]
+        idx = np.arange(MODE_B) % len(x0s)
+        pb = p.map(lambda t: t.expand((MODE_B,) + t.shape[1:]).contiguous())
+        pb = pb.replace(x0=torch.as_tensor(x0s[idx], device=dev),
+                        lam_ineq=li.expand(MODE_B, -1, -1).contiguous())
+        Xb = X.expand(MODE_B, -1, -1).contiguous()
+        Ub = U.expand(MODE_B, -1, -1).contiguous()
+        solvers = {m: TrajOptSolver(base.spec, dataclasses.replace(base.opt, riccati_mode=m),
+                                    base.cost, device=dev)
+                   for m in ("pallas", "sequential", "associative")}
+        steps, text = {}, []
+        for m, sv in solvers.items():
+            steps[m] = sv.solve(Xb, Ub, pb, 1)
+            ms = cuda_time_ms(lambda sv=sv: sv.solve(Xb, Ub, pb, 1), 3)
+            du = max(rel(steps[m].U[i].cpu(), torch.as_tensor(U_ref[idx[i]]))
+                     for i in range(len(x0s)))
+            text.append(f"{m} {ms:.3f} ms, rel|dU| vs JAX {du:.2e}")
+            if m in ("pallas", "sequential") and not du <= REL_GATE:
+                fail(f"{m} N={N}: RTI step rel|dU| {du:.2e} > {REL_GATE}")
+        # sequential at B = 1: kernel 7
+        s1 = solvers["sequential"]
+        one = s1.solve(X, U, p.replace(x0=torch.as_tensor(x0s[:1], device=dev), lam_ineq=li), 1)
+        ms1 = cuda_time_ms(lambda: s1.solve(X, U, p.replace(
+            x0=torch.as_tensor(x0s[:1], device=dev), lam_ineq=li), 1), 5)
+        du1 = rel(one.U[0].cpu(), torch.as_tensor(U_ref[0]))
+        text.append(f"sequential B=1 {ms1:.3f} ms, rel|dU| {du1:.2e}")
+        if not du1 <= REL_GATE:
+            fail(f"sequential B=1 N={N}: rel|dU| {du1:.2e} > {REL_GATE}")
+        # the associative gains against the sequential ones, at the chain's
+        # perturbation of the converged point (phase 4's: x0 std 0.01)
+        Xq, Uq, pq = F.perturbed_batch(X, U, p.replace(lam_ineq=li), MODE_B, seed=SEED)
+        blocks = lingram(base.spec, base.weights, Xq, Uq, pq)
+        P_N, p_N = terminal_gram(base.spec, base.weights, float(base.cost.reg_eps_e), Xq[:, -1],
+                                 pq.peak[:, :, -1], pq.base_ref_e, pq.joint_ref, pq.step_height)
+        d = base._defects(Xq, Uq, pq)
+        lm = float(base.opt.lm_reg)
+        K_s, k_s = riccati_sweep_structured(base.dt_nodes, *blocks, P_N, p_N, d, lm)
+        K_p, k_p = parallel_riccati(base.A, base.B, *blocks, P_N, p_N, d, lm)
+        eK, ek = per_problem(K_p, K_s), per_problem(k_p, k_s)
+        text.append(f"associative gains vs sequential (x0 noise 0.01, each problem): K {eK:.2e}, "
+                    f"kff {ek:.2e}" + (f" (<= {ASSOC_ENVELOPE})" if N == 25 else ""))
+        if N == 25 and not (eK <= ASSOC_ENVELOPE and ek <= ASSOC_ENVELOPE):
+            fail(f"associative N={N}: gains {eK:.2e} / {ek:.2e} outside {ASSOC_ENVELOPE}")
+        if N == 100:
+            # the JAX package's N = 100 agreement: two iterations from the cold start
+            U2 = {m: solvers[m].solve(X0, U0, p, 2).U for m in ("sequential", "associative")}
+            r2 = rel(U2["associative"].cpu(), U2["sequential"].cpu())
+            text.append(f"two iterations from the cold start, associative vs sequential "
+                        f"rel {r2:.2e} (<= {ASSOC_N100_REL})")
+            if not r2 <= ASSOC_N100_REL:
+                fail(f"associative N=100 two iterations rel {r2:.2e} > {ASSOC_N100_REL}")
+        print(f"[riccati modes] N={N}, B={MODE_B} RTI steps from the golden point (dynjac "
+              f"linearization): " + "; ".join(text) + f" ({card})", flush=True)
+
+    # solve(use_fast_linearize=True): jacfwd + pallas (kernel 6) at B=256
+    g = load_golden("go2_trot_n25")
+    base, _, _, p = F.flagship(device=dev)
+    X, U, _, li = warm_start_from_numpy(g["X_conv"], g["U_conv"], g["U_conv"][:, :18],
+                                        g["lam_ineq_conv"], device=dev)
+    sj = TrajOptSolver(base.spec, dataclasses.replace(base.opt, linearize_mode="jacfwd",
+                                                      riccati_mode="pallas"), base.cost, device=dev)
+    rep = lambda t: t.expand((MODE_B,) + t.shape[1:]).contiguous()
+    Xb, Ub, pb = rep(X), rep(U), p.replace(lam_ineq=li).map(rep)
+    fast, jac = sj.solve(Xb, Ub, pb, 1, use_fast_linearize=True), sj.solve(Xb, Ub, pb, 1)
+    ms_f = cuda_time_ms(lambda: sj.solve(Xb, Ub, pb, 1, use_fast_linearize=True), 3)
+    ms_j = cuda_time_ms(lambda: sj.solve(Xb, Ub, pb, 1), 3)
+    r = max(rel(fast.U, jac.U), rel(fast.X, jac.X))
+    rg = rel(fast.U[0].cpu(), torch.as_tensor(g["U_rti"]))
+    print(f"[fast linearize] B={MODE_B} RTI step, jacfwd + pallas: fast blocks {ms_f:.3f} ms, "
+          f"jacfwd blocks {ms_j:.3f} ms (CUDA events), rel|d(dU, dX)| between them {r:.2e}, fast "
+          f"vs JAX golden {rg:.2e} (gate {REL_GATE}) ({card})", flush=True)
+    if not (r <= REL_GATE and rg <= REL_GATE):
+        fail(f"fast linearize step rel {r:.2e} / vs golden {rg:.2e} > {REL_GATE}")
+
+
+def oracle_part(dev, card):
+    """29 (3): kernel 1 and the structured dynamics against the tree in
+    float64 on the card."""
+    import numpy as np
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch.models import dynamics as fast
+    from iterative_learning_nmpc_tpu_torch.models import tree_dynamics as tree
+    from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore
+    from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec
+    from iterative_learning_nmpc_tpu_torch.robots.solo12 import solo12_spec
+
+    for name, make in (("go2", go2_spec), ("solo12", solo12_spec)):
+        spec = make(device=dev)
+        rng = np.random.default_rng(SEED)
+        M = ORACLE_M
+        q = np.repeat(spec.q_home.cpu().numpy()[None].astype(np.float64), M, 0)
+        q[:, :3] += rng.uniform(-0.5, 0.5, (M, 3))
+        q[:, 3:6] = rng.uniform(-0.4, 0.4, (M, 3))
+        q[:, 6:] += rng.uniform(-0.4, 0.4, (M, spec.nu))
+        v, a = rng.uniform(-1.5, 1.5, (M, 18)), rng.uniform(-6.0, 6.0, (M, 18))
+        f = rng.uniform(-40.0, 40.0, (M, 4, 3))
+        t32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        t64 = lambda x: t32(x).double()
+        out = dyncore(spec, torch.cat([t32(q), t32(v)], 1).contiguous(), t32(a).contiguous(),
+                      t32(f).reshape(M, 12).contiguous())
+        ref = torch.cat([tree.foot_positions(spec, t64(q)).reshape(M, 12),
+                         tree.foot_velocities(spec, t64(q), t64(v)).reshape(M, 12),
+                         tree.rnea(spec, t64(q), t64(v), t64(a), f_ext_feet=t64(f))], 1)
+        e_pv = float((out[:, :24].double() - ref[:, :24]).abs().max())
+        rtol, atol = ORACLE_TAU
+        e_tau = float(((out[:, 24:].double() - ref[:, 24:]).abs()
+                       - rtol * ref[:, 24:].abs()).max())
+        e_M = float(((fast.mass_matrix(spec, t32(q)).double() - tree.mass_matrix(spec, t64(q))).abs()
+                     - rtol * tree.mass_matrix(spec, t64(q)).abs()).max())
+        e_J = float((fast.foot_jacobians(spec, t32(q)).double()
+                     - tree.foot_jacobians(spec, t64(q))).abs().max())
+        print(f"[oracle] {name}, {M} random states, against the tree in float64 on the card: "
+              f"kernel 1 p/v feet {e_pv:.2e} (<= {ORACLE_P_ATOL}), tau {e_tau:.2e} over rtol "
+              f"{rtol} (<= {atol}); structured mass matrix {e_M:.2e} over rtol {rtol} (<= {atol}), "
+              f"foot Jacobians {e_J:.2e} (<= {ORACLE_P_ATOL}) ({card})", flush=True)
+        if not (e_pv <= ORACLE_P_ATOL and e_tau <= atol and e_M <= atol and e_J <= ORACLE_P_ATOL):
+            fail(f"oracle {name}: p/v {e_pv:.2e}, tau {e_tau:.2e}, M {e_M:.2e}, J {e_J:.2e}")
+
+
+def solver_options_phase(dev, card, kernels) -> dict:
+    """Phase 29: the solver's last options on the card; the counters set to
+    0 before and read after. Returns the launches."""
+    t_phase = time.perf_counter()
+    zero(kernels)
+    time_opt_part(dev, card, load_golden("go2_trot_time_opt"))
+    riccati_modes_part(dev, card)
+    oracle_part(dev, card)
+    launches = read(kernels)
+    print(f"[29] launches {launches}; phase 29 wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if min(launches[k] for k in ("dyncore", "lingram", "riccati_sweep", "dynjac")) <= 0:
+        fail(f"29: a kernel of the new routes was not launched: {launches}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3408,6 +3763,8 @@ def main() -> None:
     by_phase.update(host_loop_phase(dev, card, kernels))
     # ---- 28. the host-side learning pipeline on the device plant ----
     by_phase.update(learning_pipeline_phase(dev, card, kernels))
+    # ---- 29. the solver's last options ----
+    by_phase["29"] = solver_options_phase(dev, card, kernels)
     for r in results:
         r["launches_by_phase"] = {ph: c[r["name"]] for ph, c in by_phase.items()}
     next(r for r in results if r["name"] == "policy_pd")["launches_by_phase"]["25"] = ws

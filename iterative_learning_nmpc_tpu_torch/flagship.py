@@ -3,7 +3,9 @@
 ``flagship`` builds the Go2 trot problem the JAX package benchmarks
 (``__graft_entry__._flagship``): N=25 nodes over a 1 s horizon, standing
 start with the feet on the ground, 0.3 m/s forward reference; with
-``robot="solo12"`` the same problem for Solo12 (its trot configuration). ``rti_chain``
+``robot="solo12"`` the same problem for Solo12 (its trot configuration), and
+with ``time_opt=True`` in the time-optimal mode (the JAX bench's
+``_instance("trot", time_opt=True)``). ``rti_chain``
 is the steady-state serving loop of ``bench._rti_chain``: one warm-started
 RTI solve per step with the equality and inequality duals carried over.
 """
@@ -24,12 +26,14 @@ from .robots.solo12 import solo12_spec
 from .solver.sqp import TrajOptSolver, make_params
 
 
-def flagship(device=None, n_nodes: Optional[int] = None, robot: str = "go2"):
+def flagship(device=None, n_nodes: Optional[int] = None, robot: str = "go2",
+             time_opt: bool = False):
     """(solver, X, U, params) for one problem (batch of one), cold-started,
     on ``device`` (by default the CUDA card)."""
     device = resolve_device(device)
     spec = {"go2": go2_spec, "solo12": solo12_spec}[robot](device=device)
     gait, opt, cost = get_quadruped_config("trot", robot)
+    opt.enable_time_opt = time_opt
     if n_nodes is not None:
         opt.n_nodes = n_nodes
         opt.time_horizon = n_nodes * 0.04

@@ -67,7 +67,9 @@ def params_from_numpy(src, device=None) -> OCPParams:
 
 
 def warm_start_from_numpy(X, U, lam_eq, lam_ineq, device=None):
-    """(X, U, lam_eq, lam_ineq) tensors; unbatched arrays gain a batch dim."""
+    """(X, U, lam_eq, lam_ineq) tensors; unbatched arrays gain a batch dim.
+    U keeps its width: 30 columns, or 31 with the time-optimal mode's
+    durations (the JAX package's time-optimal ``Solution``)."""
     out = []
     for a, nd in ((X, 2), (U, 2), (lam_eq, 2), (lam_ineq, 2)):
         t = _t(a, device)

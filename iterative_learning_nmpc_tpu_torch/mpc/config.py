@@ -10,19 +10,28 @@ GN-SQP solver (penalty weights, line-search set, Levenberg regularization).
 The fields are identical to ``iterative_learning_nmpc_tpu/mpc/config.py`` so
 one configuration drives both packages. The port's solver resolves
 ``riccati_mode`` and ``linearize_mode`` as the JAX solver does
-(``solver/sqp.resolve_linearize``), except that "auto" means "pallas" /
-"dynjac" on every device, and it refuses the modes it has not ported:
+(``solver/sqp.resolve_routes``), except that "auto" means "pallas" /
+"dynjac" on every device:
 
 - "auto" / "dynjac" with "auto" / "pallas": the lingram (B > 1) or dynjac
   (B = 1) kernel, then the fused Riccati + rollout kernel up to N = 88
   nodes, or the sweep kernel and the rollout kernel above (the JAX
   package's long-horizon split),
-- "jacfwd" / "jacrev" with "auto" / "pallas": the jacfwd Gram as torch ops,
-  the sweep kernel from the terminal Gram, then the rollout kernel,
-- "sequential", "associative" and ``enable_time_opt``: NotImplementedError.
+- "jacfwd" / "jacrev" with "auto" / "pallas": the jacfwd Gram as torch ops
+  (or, under ``solve(use_fast_linearize=True)``, the structure-assembled
+  one), the sweep kernel from the terminal Gram, then the rollout kernel,
+- "sequential": the same linearization, then the structured sweep and
+  rollout node by node in torch,
+- "associative": the same linearization, then the log-depth associative
+  scan (``solver/parallel_riccati.py``) and the generic rollout,
+- ``enable_time_opt``: each node's duration becomes a 31st input, bounded
+  by ``opt_dt_scale`` and pulled to the nominal by the cost's ``time_opt``;
+  the jacfwd Gram over 31 columns, the generic sweep with per-node A/B
+  (whatever the modes say; "associative" with it raises ValueError).
 
 Independently of the modes, CPU tensors take the kernels' plain PyTorch
-twins and CUDA tensors the kernels in ``ops/``.
+twins and CUDA tensors the kernels in ``ops/``; the merit and dual rows go
+through the dyncore kernel in every mode.
 """
 from __future__ import annotations
 
@@ -106,16 +115,18 @@ class MPCOptConfig:
     ls_alphas: Tuple[float, ...] = (1.0, 0.5, 0.25, 0.1)
     ls_alphas_steady: Tuple[float, ...] = (1.0, 0.25)
     # Riccati backward sweep, as the port resolves the JAX package's modes
-    # (solver/sqp.resolve_linearize):
-    #   "auto", "pallas"            -> the CUDA sweep kernels (ops/riccati.py):
-    #                                  fused sweep + rollout up to N = 88
-    #                                  nodes, sweep then rollout above
-    #   "sequential", "associative" -> not ported: NotImplementedError
+    # (solver/sqp.resolve_routes):
+    #   "auto", "pallas" -> the CUDA sweep kernels (ops/riccati.py): fused
+    #                       sweep + rollout up to N = 88 nodes, sweep then
+    #                       rollout above
+    #   "sequential"     -> the structured sweep and rollout in torch
+    #   "associative"    -> solver/parallel_riccati.py, the generic rollout
     riccati_mode: str = "auto"
     # Stage linearization:
     #   "auto", "dynjac"  -> the lingram kernel (B > 1) or the dynjac kernel
     #                        (B = 1)
-    #   "jacfwd", "jacrev" -> the jacfwd Gram as torch ops, then the sweep
+    #   "jacfwd", "jacrev" -> the jacfwd Gram as torch ops (the fast one under
+    #                        solve(use_fast_linearize=True)), then the sweep
     #                        kernel from the terminal Gram's P_N
     linearize_mode: str = "auto"
     # Penalty weights for the constraint residuals (quadratic / AL)

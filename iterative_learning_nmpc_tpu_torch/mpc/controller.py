@@ -203,7 +203,8 @@ class LocomotionMPC:
         controller's ``_build_plan_fn`` jits and its batched collector
         vmaps). Returns (sol, lam_eq, (q, v, a, f, tau_ff)), each plan
         (B, n_interp, ...); the nodes' dt are the config's, shared by the
-        batch."""
+        batch, or in the time-optimal mode each problem's optimized ones
+        (``Solution.dt_sol``)."""
         solver, N = self.solver, self.config_opt.n_nodes
         X_ws, U_ws = solver.shift_warmstart(X_prev, U_prev, shift)
         X_ws = torch.cat([params.x0[:, None], X_ws[:, 1:]], dim=1)
@@ -214,7 +215,7 @@ class LocomotionMPC:
         B, n = sol.X.shape[0], self.n_interp_plan
         a, f = sol.U[..., :18], sol.U[..., 18:30].reshape(B, N, self.n_foot, 3)
         q_plan, v_plan, id_rep = interpolate_plan(sol.X[..., :18], sol.X[..., 18:], a,
-                                                  params.dt[0], n)
+                                                  sol.dt_sol(params.dt[0]), n)
         a_plan, f_plan = a[:, id_rep], f[:, id_rep]
         # RNEA over the (B * n) plan rows, one batch dim as at B = 1
         tau_ff = dyn.id_torques(self.spec, q_plan.reshape(B * n, -1), v_plan.reshape(B * n, -1),
@@ -441,7 +442,13 @@ class LocomotionMPC:
         self._lam_prev, self._lami_prev = lam, sol.lam_ineq
         self.last_node = node
         n = self.n_interp_plan
-        host = torch.cat([t.reshape(-1) for t in plan] + [sol.stats.cost]).cpu().numpy()
+        dt_sol = sol.dt_sol(None)
+        host = torch.cat([t.reshape(-1) for t in plan] + (
+            [] if dt_sol is None else [dt_sol.reshape(-1)]) + [sol.stats.cost]).cpu().numpy()
+        # the node durations of this plan: the optimized ones in the
+        # time-optimal mode (dt_plan_full records the first)
+        self._last_dt_sol = (np.full(N, self.dt_nodes) if dt_sol is None
+                             else host[-1 - N:-1].astype(np.float64))
         if not np.isfinite(host[-1]):
             raise SolverDiverged(f"solver diverged: {sol.stats}")
         out, i = [], 0

@@ -143,16 +143,49 @@ def split_state(x):
 
 
 def split_input(u):
-    """(a (..., 18), f (..., 4, 3)) from the input vector."""
+    """(a (..., 18), f (..., 4, 3)) from the input vector; a trailing dt
+    slot (the time-optimal mode's 31st input) is ignored."""
     return u[..., :18], u[..., 18:30].reshape(u.shape[:-1] + (N_FOOT, 3))
 
 
+def input_dt(u: torch.Tensor, dt_nominal):
+    """The node duration: the 31st input where the input carries one (the
+    time-optimal mode), else ``dt_nominal``."""
+    if u.shape[-1] > NU:
+        return u[..., NU]
+    return dt_nominal
+
+
 def dynamics_step(x: torch.Tensor, u: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
-    """Double-integrator step in the chart; dt broadcasts against x[..., 0]."""
+    """Double-integrator step in the chart: exact for a fixed dt, which
+    broadcasts against x[..., 0]; bilinear (dt * a, dt^2 * a) when dt is the
+    optimized 31st input, which then replaces ``dt``."""
     q, v = split_state(x)
     a, _ = split_input(u)
-    dt = dt[..., None]
+    dt = input_dt(u, dt)[..., None]
     return torch.cat([q + dt * v + 0.5 * dt * dt * a, v + dt * a], dim=-1)
+
+
+def dynamics_jacobians(x: torch.Tensor, u: torch.Tensor):
+    """Per-node (A, B) = d dynamics_step / d (x, u) of the time-optimal mode
+    (u (..., 31), dt = u[..., 30]) in closed form: A = [[I, dt I], [0, I]],
+    B = [[dt^2/2 I, 0, v + dt a], [dt I, 0, a]] -> (..., 36, 36),
+    (..., 36, 31)."""
+    dt = u[..., NU]
+    a, v = u[..., :18], x[..., 18:36]
+    lead = dt.shape
+    eye = torch.eye(18, dtype=x.dtype, device=x.device)
+    dtI = dt[..., None, None] * eye
+    A = torch.zeros(lead + (NX, NX), dtype=x.dtype, device=x.device)
+    A[..., :18, :18] = eye
+    A[..., 18:, 18:] = eye
+    A[..., :18, 18:] = dtI
+    B = torch.zeros(lead + (NX, u.shape[-1]), dtype=x.dtype, device=x.device)
+    B[..., :18, :18] = 0.5 * dt[..., None, None] * dtI
+    B[..., 18:, :18] = dtI
+    B[..., :18, NU] = v + dt[..., None] * a
+    B[..., 18:, NU] = a
+    return A, B
 
 
 def dynamics_matrices(dt: float, dtype=torch.float32, device=None):
@@ -226,7 +259,7 @@ def stage_residual(
     spec: RobotSpec,
     w: Weights,
     x: torch.Tensor,          # (..., 36)
-    u: torch.Tensor,          # (..., 30)
+    u: torch.Tensor,          # (..., 30), or (..., 31) with the dt slot
     cnt_k: torch.Tensor,      # (..., 4)
     peak_k: torch.Tensor,     # (..., 4)
     plane_k: torch.Tensor,    # (..., 4, 3)
@@ -242,7 +275,9 @@ def stage_residual(
     core: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """All running residuals of one node, (..., 142) or (..., 130) without
-    the torque-limit hinge rows. ``core``, when given, is the precomputed
+    the torque-limit hinge rows, and three more (``dt_residual``, before the
+    torque rows as in the JAX package) when u carries the time-optimal
+    mode's dt slot (..., 31). ``core``, when given, is the precomputed
     (p_feet (..., 4, 3), v_feet (..., 4, 3), tau_full (..., 18))."""
     q, v = split_state(x)
     a, f = split_input(u)
@@ -300,6 +335,8 @@ def stage_residual(
 
     parts = [rb, rj, ra, rf, rf_zero, r_swing, r_disp, r_patch, r_dyn, r_cnt,
              cone, r_clear]
+    if u.shape[-1] > NU:
+        parts.append(dt_residual(w, u[..., NU]))
     if include_torque:
         g_tau = torch.abs(tau_full[..., 6:]) - spec.torque_limit
         if lam_ineq_k is not None:
@@ -308,6 +345,16 @@ def stage_residual(
             r_tau = hinge(g_tau)
         parts.append(r_tau * w.torque)
     return torch.cat(parts, dim=-1)
+
+
+def dt_residual(w: Weights, dt_k: torch.Tensor) -> torch.Tensor:
+    """The time-optimal mode's three rows of a node (..., 3): the pull
+    toward the nominal duration, (dt - dt_nom) * dt_reg, and the two bound
+    hinges, max(dt_min - dt, 0) and max(dt - dt_max, 0), each * dt_bound.
+    They are cost rows only: no equality or inequality row carries dt."""
+    return torch.stack([(dt_k - w.dt_nom) * w.dt_reg,
+                        hinge(w.dt_min - dt_k) * w.dt_bound,
+                        hinge(dt_k - w.dt_max) * w.dt_bound], dim=-1)
 
 
 def terminal_residual(spec: RobotSpec, w: Weights, x, peak_k, base_ref_e,

@@ -11,7 +11,12 @@ Counterparts in ``iterative_learning_nmpc_tpu/solver/linearize.py``:
 - ``gn_blocks_jacfwd`` <- the jacfwd-path Gram (``solver/sqp.py``): the same
   blocks as the Gram of [Jx | Ju | r], with the stage Jacobian from
   ``torch.func.jacfwd`` of ``ocp.problem.stage_residual`` (the plain twin of
-  the ``ops.lingram`` kernel).
+  the ``ops.lingram`` kernel; 31 input columns in the time-optimal mode),
+- ``make_const_blocks``, ``linearize_stage_fast``,
+  ``assemble_stage_jacobian``, ``linearize_stages_fast`` <- the same names:
+  the stage Jacobian assembled from the residual's structure, with reverse-
+  mode derivatives of the RNEA rows and the foot kinematics only
+  (``solve(use_fast_linearize=True)``); ``gn_blocks_fast`` is its Gram.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Dict
 
 import torch
 
+from ..models import dynamics as dyn
 from ..ocp.problem import (
     N_FOOT,
     NU,
@@ -29,9 +35,11 @@ from ..ocp.problem import (
     equality_residuals,
     hinge,
     hinge_shifted,
+    hinge_shifted_act,
     hinge_shifted_slope,
     hinge_slope,
     ineq_values,
+    split_state,
     stage_residual,
     terminal_residual,
 )
@@ -285,9 +293,162 @@ def gn_blocks_jacfwd(spec: RobotSpec, w: Weights, Xb: torch.Tensor,
 
     J = torch.func.vmap(torch.func.jacfwd(res, argnums=0))(Z, flat)
     r = res(Z, flat)
-    Ja = torch.cat([J, r[..., None]], dim=2)                  # (BN, rows, 67)
+    return _blocks_of(B, N, r, J[..., :NX], J[..., NX:])
+
+
+def _blocks_of(B: int, N: int, r, Jx, Ju):
+    """(Q, R, M, qx, ru) (B, N, ...) as slices of the Gram of
+    [Jx | Ju | r] over flat (B * N) nodes."""
+    nu = Ju.shape[-1]
+    Ja = torch.cat([Jx, Ju, r[..., None]], dim=2)             # (BN, rows, 37 + nu)
     G = Ja.transpose(1, 2) @ Ja
     rs = lambda t: t.reshape((B, N) + t.shape[1:])
     return (rs(G[:, :NX, :NX]), rs(G[:, NX:NX + nu, NX:NX + nu]),
             rs(G[:, :NX, NX:NX + nu]), rs(G[:, :NX, NX + nu]),
             rs(G[:, NX:NX + nu, NX + nu]))
+
+
+def make_const_blocks(w: Weights):
+    """The constant Jacobian rows of [rb (12); rj (24); ra (12)] (the
+    tracking rows are linear in z): Jx (48, 36), Ju (48, 30) on w's
+    device."""
+    f32 = dict(dtype=w.base.dtype, device=w.base.device)
+    Jx = torch.zeros(48, NX, **f32)
+    Ju = torch.zeros(48, NU, **f32)
+    i6, i12 = torch.arange(6), torch.arange(12)
+    Jx[i6, i6] = w.base[:6]
+    Jx[6 + i6, 18 + i6] = w.base[6:]
+    Jx[12 + i12, 6 + i12] = w.joint[:12]
+    Jx[24 + i12, 24 + i12] = w.joint[12:]
+    Ju[36 + i12, 6 + i12] = w.acc
+    return Jx, Ju
+
+
+def linearize_stage_fast(spec: RobotSpec, w: Weights, x, u, cnt_k, peak_k, plane_k,
+                         cnt_loc_k, patch_k, restrict, Jx_const, Ju_const,
+                         lam_ineq_k=None, include_torque: bool = True):
+    """(Jx, Ju) of flat nodes (L, ...), rows ordered as
+    ocp.problem.stage_residual's (no dt slot): reverse-mode derivatives of
+    the 6 (18 with the torque rows) RNEA rows in (x, a, f_eff) and of the
+    24 foot-kinematic rows in x (``torch.func.jacrev``, one node at a time
+    under ``vmap``), the rest in closed form."""
+    n_tau = 18 if include_torque else 6
+    a = u[..., :18]
+    f_eff = cnt_k[..., None] * u[..., 18:30].reshape(u.shape[:-1] + (N_FOOT, 3))
+
+    def tau_rows(x_, a_, fe_):
+        q_, v_ = split_state(x_)
+        return dyn.rnea(spec, q_, v_, a_, f_ext_feet=fe_)[..., :n_tau]
+
+    def pv(x_):
+        q_, v_ = split_state(x_)
+        return dyn.foot_positions(spec, q_), dyn.foot_velocities(spec, q_, v_)
+
+    vm = torch.func.vmap
+    Jt_x, Jt_a, Jt_f = vm(torch.func.jacrev(tau_rows, argnums=(0, 1, 2)))(x, a, f_eff)
+    tau = tau_rows(x, a, f_eff)
+    Jp, Jvf = vm(torch.func.jacrev(pv))(x)                  # (L, 4, 3, 36) each
+    p_feet = dyn.foot_positions(spec, x[..., :18])
+    return assemble_stage_jacobian(
+        spec, w, x, u, cnt_k, peak_k, plane_k, cnt_loc_k, patch_k, restrict, p_feet,
+        tau, Jp, Jvf, Jt_x, Jt_a, Jt_f.reshape(Jt_f.shape[:2] + (12,)), Jx_const,
+        Ju_const, include_torque, lam_ineq_k=lam_ineq_k)
+
+
+def assemble_stage_jacobian(spec: RobotSpec, w: Weights, x, u, cnt_k, peak_k, plane_k,
+                            cnt_loc_k, patch_k, restrict, p_feet, tau, Jp, Jvf,
+                            Jt_x, Jt_a, Jt_f, Jx_const, Ju_const,
+                            include_torque: bool, lam_ineq_k=None):
+    """(Jx (L, rows, 36), Ju (L, rows, 30)) of flat nodes from the dynamics
+    core and its Jacobians: Jp, Jvf (L, 4, 3, 36); Jt_x (L, n_tau, 36),
+    Jt_a (L, n_tau, 18), Jt_f (L, n_tau, 12) in f_eff (scaled by cnt here).
+    The hinges' activity is the JAX package's (``hinge_shifted_act``: 0 at
+    g == 0), shifted by lam_ineq_k."""
+    L = x.shape[0]
+    f32 = dict(dtype=x.dtype, device=x.device)
+    f_eff = cnt_k[..., None] * u[..., 18:30].reshape(L, N_FOOT, 3)
+    cnt12 = torch.repeat_interleave(cnt_k, 3, dim=-1)       # (L, 12)
+    if lam_ineq_k is None:
+        s_cone = s_tau = s_patch = 0.0
+    else:
+        s_cone = cnt_k[..., None] * lam_ineq_k[:, :20].reshape(L, N_FOOT, 5)
+        s_tau, s_patch = lam_ineq_k[:, 20:32], lam_ineq_k[:, 32:36]
+    zX = lambda n: torch.zeros(L, n, NX, **f32)
+    zU = lambda n: torch.zeros(L, n, NU, **f32)
+
+    def f_cols(diag):                                       # (L, 12) -> (L, 12, 30)
+        return torch.cat([torch.zeros(L, 12, 18, **f32), torch.diag_embed(diag)], dim=2)
+
+    # rf: diag(cnt (x) w.f_reg) on the f columns; rf_zero: diag((1 - cnt) (x) 1)
+    rf_Ju = f_cols((cnt_k[..., None] * w.f_reg).reshape(L, 12))
+    rfz_Ju = f_cols(1.0 - cnt12)
+    swing_Jx = (peak_k * w.swing)[..., None] * Jp[:, :, 2, :]
+    disp_Jx = ((restrict[:, None] * cnt_k * w.foot_disp)[..., None, None]
+               * Jp[:, :, :2, :]).reshape(L, 8, NX)
+    d_xy = p_feet[..., :2] - cnt_loc_k[..., :2]
+    dist = torch.sqrt((d_xy * d_xy).sum(-1) + 1.0e-12)
+    unit = d_xy / dist[..., None]
+    patch_act = hinge_shifted_act(dist - patch_k, s_patch)
+    patch_Jx = ((restrict[:, None] * cnt_k * w.patch * patch_act)[..., None]
+                * torch.einsum("lij,lijx->lix", unit, Jp[:, :, :2, :]))
+    dyn_Jx = w.dyn_cons * Jt_x[:, :6]
+    dyn_Ju = w.dyn_cons * torch.cat([Jt_a[:, :6], Jt_f[:, :6] * cnt12[:, None, :]], dim=2)
+    cnt_Jx = torch.cat([Jvf[:, :, :2, :],
+                        (Jvf[:, :, 2, :] + w.stab_gain[:, None] * Jp[:, :, 2, :])[:, :, None]],
+                       dim=2)
+    cnt_Jx = ((cnt_k * w.contact_vel)[..., None, None] * cnt_Jx).reshape(L, 12, NX)
+    # cone hinges (f columns only): per-foot 5 x 3 gradients, block-diagonal
+    acts = hinge_shifted_act(cone_values(f_eff, w.mu), s_cone)     # (L, 4, 5)
+    g_xy = torch.tensor(_CONE_XY, **f32)
+    mu_mask = torch.tensor(_CONE_MU_MASK, **f32)
+    g_z = torch.tensor(_CONE_Z, **f32) * (mu_mask * w.mu + (1.0 - mu_mask))
+    grad = torch.cat([g_xy.expand(L, N_FOOT, 5, 2), g_z[:, None].expand(L, N_FOOT, 5, 1)],
+                     dim=3)
+    grad = grad * (acts * (w.cone * cnt_k)[..., None])[..., None]  # (L, 4, 5, 3)
+    eye4 = torch.eye(N_FOOT, **f32)
+    cone_f = torch.einsum("lirj,ik->lirkj", grad, eye4).reshape(L, 20, 12)
+    cone_Ju = torch.cat([torch.zeros(L, 20, 18, **f32), cone_f], dim=2)
+    clear_act = (plane_k[..., 2] - p_feet[..., 2] > 0.0).to(x.dtype)
+    clear_Jx = (-(1.0 - cnt_k) * w.swing_clear * clear_act)[..., None] * Jp[:, :, 2, :]
+
+    x_parts = [Jx_const.expand(L, 48, NX), zX(12), zX(12), swing_Jx, disp_Jx, patch_Jx,
+               dyn_Jx, cnt_Jx, zX(20), clear_Jx]
+    u_parts = [Ju_const.expand(L, 48, NU), rf_Ju, rfz_Ju, zU(4), zU(8), zU(4), dyn_Ju,
+               zU(12), cone_Ju, zU(4)]
+    if include_torque:
+        tau_j = tau[:, 6:]
+        t_act = hinge_shifted_act(tau_j.abs() - spec.torque_limit, s_tau) > 0.0
+        t_scale = (t_act.to(x.dtype) * torch.sign(tau_j) * w.torque)[..., None]
+        x_parts.append(t_scale * Jt_x[:, 6:])
+        u_parts.append(t_scale * torch.cat([Jt_a[:, 6:], Jt_f[:, 6:] * cnt12[:, None, :]],
+                                           dim=2))
+    return torch.cat(x_parts, dim=1), torch.cat(u_parts, dim=1)
+
+
+def linearize_stages_fast(spec: RobotSpec, w: Weights, Xb: torch.Tensor, Ub: torch.Tensor,
+                          pb: OCPParams, Jx_const, Ju_const, include_torque: bool = True):
+    """(r, Jx, Ju) of every (problem, node), (B, N, rows, ...): the
+    residual by ocp.problem.stage_residual, the Jacobian by
+    linearize_stage_fast; the fixed-dt input layout only."""
+    B, N = Ub.shape[0], Ub.shape[1]
+    nv = node_view(pb, N)
+    flat = {k: t.reshape((B * N,) + t.shape[2:]) for k, t in nv.items()}
+    x, u = Xb[:, :-1].reshape(B * N, NX), Ub.reshape(B * N, NU)
+    r = stage_residual(spec, w, x, u, include_torque=include_torque, **flat)
+    Jx, Ju = linearize_stage_fast(
+        spec, w, x, u, flat["cnt_k"], flat["peak_k"], flat["plane_k"], flat["cnt_loc_k"],
+        flat["patch_k"], flat["restrict"], Jx_const, Ju_const,
+        lam_ineq_k=flat["lam_ineq_k"], include_torque=include_torque)
+    rs = lambda t: t.reshape((B, N) + t.shape[1:])
+    return rs(r), rs(Jx), rs(Ju)
+
+
+def gn_blocks_fast(spec: RobotSpec, w: Weights, Xb: torch.Tensor, Ub: torch.Tensor,
+                   pb: OCPParams, Jx_const, Ju_const, include_torque: bool = True):
+    """The blocks of gn_blocks_jacfwd from linearize_stages_fast's
+    structured Jacobian (``solve(use_fast_linearize=True)``)."""
+    B, N = Ub.shape[0], Ub.shape[1]
+    r, Jx, Ju = linearize_stages_fast(spec, w, Xb, Ub, pb, Jx_const, Ju_const,
+                                      include_torque=include_torque)
+    fl = lambda t: t.reshape((B * N,) + t.shape[2:])
+    return _blocks_of(B, N, fl(r), fl(Jx), fl(Ju))

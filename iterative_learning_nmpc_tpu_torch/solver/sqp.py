@@ -1,7 +1,7 @@
 """Batched GN-SQP / RTI trajectory optimizer.
 
-Counterpart of ``iterative_learning_nmpc_tpu/solver/sqp.py`` for the
-non-time-optimal path. One SQP iteration of a batch of B problems:
+Counterpart of ``iterative_learning_nmpc_tpu/solver/sqp.py``. One SQP
+iteration of a batch of B problems:
 
   1. shooting defects (exactly linear double-integrator dynamics),
   2. Gauss-Newton blocks of every (problem, node)      -> ops.lingram, or for
@@ -14,15 +14,32 @@ non-time-optimal path. One SQP iteration of a batch of B problems:
      FK/RNEA pass over all candidates                  -> ops.dyncore,
   5. damped inequality-dual update.
 
-``linearize_mode="jacfwd"`` (or ``"jacrev"``) replaces steps 2-3 with the
-JAX package's route of that name under ``riccati_mode="pallas"``:
-linearize.gn_blocks_jacfwd + ops.terminal_gram, ops.riccati_sweep from the
-given P_N, then ops.forward_rollout.
+The other routes are the JAX package's, each named by the configuration
+(``resolve_routes``); none stands in for a kernel:
 
-The B = 1 route keeps steps 3 and 4 on the same kernels as a batch: the
-riccati kernels build in-kernel the terminal Gram that the JAX package builds
-with ``_linearize_terminal`` + ``_riccati_solve_structured``, and dyncore
-evaluates the line search where the JAX package uses its XLA residual stack.
+- ``linearize_mode="jacfwd"`` (or ``"jacrev"``) forms the blocks of step 2
+  with linearize.gn_blocks_jacfwd as torch ops, or with
+  linearize.gn_blocks_fast under ``solve(use_fast_linearize=True)``; under
+  ``riccati_mode="pallas"`` step 3 is then ops.terminal_gram,
+  ops.riccati_sweep from the given P_N and ops.forward_rollout,
+- ``riccati_mode="sequential"`` sweeps and rolls out node by node in torch
+  (ops.riccati.riccati_sweep_structured / forward_delta_structured, the JAX
+  package's structured scans) after the blocks of step 2,
+- ``riccati_mode="associative"`` sweeps by parallel_riccati (a scan of
+  depth ceil(log2(N+1)) over the nodes) and rolls out by forward_delta,
+- ``enable_time_opt`` appends each node's duration as a 31st input: the
+  shooting dynamics become bilinear, the blocks come from
+  gn_blocks_jacfwd over 31 input columns, the per-node A_k/B_k from
+  ocp.problem.dynamics_jacobians, the sweep is riccati_solve and the
+  rollout forward_delta; the merit of each line-search candidate reads its
+  true defects.
+
+Step 4 runs on ops.dyncore in every route (the time-optimal mode's three
+dt rows of a node are added in torch). The B = 1 route keeps steps 3 and 4
+on the same kernels as a batch: the riccati kernels build in-kernel the
+terminal Gram that the JAX package builds with ``_linearize_terminal`` +
+``_riccati_solve_structured``, and dyncore evaluates the line search where
+the JAX package uses its XLA residual stack.
 
 The loops keep the semantics of ``jax.vmap`` over the JAX package's
 ``while_loop``s: the outer loop stops a problem at step_norm <= nlp_tol, the
@@ -44,7 +61,10 @@ from ..ocp.problem import (
     NC_INEQ,
     NC_PATCH,
     NC_TORQUE,
+    NU,
     OCPParams,
+    dynamics_jacobians,
+    dynamics_matrices,
     dynamics_step,
     make_weights,
 )
@@ -53,14 +73,19 @@ from ..ops.dynjac import dynjac
 from ..ops.lingram import lingram
 from ..ops.riccati import (
     FUSED_ROLLOUT_MAX_N,
+    _cholesky_nan,
+    forward_delta_structured,
     forward_rollout,
     riccati_rollout,
     riccati_sweep,
+    riccati_sweep_structured,
     riccati_sweep_terminal,
     terminal_gram,
 )
 from ..robots.spec import RobotSpec
-from .linearize import cost_dual, gn_blocks_jacfwd, lingram_structured
+from .linearize import (cost_dual, gn_blocks_fast, gn_blocks_jacfwd, lingram_structured,
+                        make_const_blocks)
+from .parallel_riccati import parallel_riccati
 
 
 class SolveStats(NamedTuple):
@@ -75,37 +100,105 @@ class SolveStats(NamedTuple):
 
 class Solution(NamedTuple):
     X: torch.Tensor          # (B, N+1, 36)
-    U: torch.Tensor          # (B, N, 30)
+    U: torch.Tensor          # (B, N, 30), (B, N, 31) in the time-optimal mode
     stats: SolveStats
     lam_ineq: torch.Tensor   # (B, N, NC_INEQ) annealed AL hinge shifts
     r_eq: torch.Tensor       # (B, N, 18) bare equality rows at the solution
 
+    def dt_sol(self, dt_nominal):
+        """The node durations: the optimized 31st input (B, N) in the
+        time-optimal mode, else ``dt_nominal``."""
+        if self.U.shape[-1] > NU:
+            return self.U[..., NU]
+        return dt_nominal
 
-def resolve_linearize(opt: MPCOptConfig) -> str:
-    """The solver's linearization route, "dynjac" or "jacfwd", from the
-    config's ``linearize_mode`` and ``riccati_mode`` as the JAX package's
-    solver resolves them (its ``solver/sqp.py:305-314``); raises for the
-    modes the port does not have. The Riccati route is always "pallas".
 
-    "auto" resolves to "dynjac" / "pallas" on every device: the JAX
-    package's "auto" picks by whether Pallas is available, which the port
-    does not depend on (CPU tensors take the kernels' plain twins).
-    "dynjac" linearizes with kernel 2 (a batch) or 7 (B = 1) only.
-    "jacfwd" is the JAX package's XLA route, chosen by name, and runs
-    linearize.gn_blocks_jacfwd as torch ops on every device: it is not a
-    fallback of the kernels. "jacrev" is jacfwd there too unless
-    ``solve(use_fast_linearize=True)``, which the port does not have.
-    """
+def _bcast_nodes(A: torch.Tensor, lead) -> torch.Tensor:
+    """Constant (r, c), per-node (N, r, c) or per-(problem, node)
+    (B, N, r, c) dynamics blocks -> (B, N, r, c) views."""
+    while A.dim() < 4:
+        A = A.unsqueeze(0)
+    return A.expand(tuple(lead) + A.shape[-2:])
+
+
+def riccati_solve(A, B, Q, R, M, qx, ru, P_N, p_N, defects, lm):
+    """The generic backward sweep (sqp._riccati_solve, the oracle of the
+    structured one) over a leading problem batch: A (36, 36), (N, 36, 36)
+    or (B, N, 36, 36), B likewise with nu columns; Q (B, N, 36, 36),
+    R (B, N, nu, nu), M (B, N, 36, nu), qx (B, N, 36), ru (B, N, nu),
+    P_N (B, 36, 36), p_N (B, 36), defects (B, N, 36) with
+    dx' = A dx + B du + d -> K (B, N, nu, 36), kff (B, N, nu). A failed
+    factor gives NaNs, as jnp.linalg.cholesky does."""
+    lead = Q.shape[:2]
+    A, B = _bcast_nodes(A, lead), _bcast_nodes(B, lead)
+    eyeu = torch.eye(R.shape[-1], dtype=Q.dtype, device=Q.device)
+    P, pvec = P_N, p_N
+    Ks, ks = [None] * lead[1], [None] * lead[1]
+    for n in reversed(range(lead[1])):
+        Ak, Bk = A[:, n], B[:, n]
+        AkT, BkT = Ak.transpose(1, 2), Bk.transpose(1, 2)
+        PA, PB = P @ Ak, P @ Bk
+        Qxx = Q[:, n] + AkT @ PA
+        Quu = R[:, n] + BkT @ PB + lm * eyeu
+        Qux = M[:, n].transpose(1, 2) + BkT @ PA
+        Pd = (P @ defects[:, n, :, None]) + pvec[..., None]
+        qxn = qx[:, n] + (AkT @ Pd)[..., 0]
+        qu = ru[:, n] + (BkT @ Pd)[..., 0]
+        L = _cholesky_nan(Quu)
+        sol = torch.cholesky_solve(torch.cat([Qux, qu[..., None]], dim=2), L)
+        K, kff = -sol[..., :-1], -sol[..., -1]
+        P = Qxx + Qux.transpose(1, 2) @ K
+        P = 0.5 * (P + P.transpose(1, 2))
+        pvec = qxn + (Qux.transpose(1, 2) @ kff[..., None])[..., 0]
+        Ks[n], ks[n] = K, kff
+    return torch.stack(Ks, 1), torch.stack(ks, 1)
+
+
+def forward_delta(A, B, K, kff, defects, dx0):
+    """The generic alpha=1 rollout (sqp._forward_delta) with constant or
+    per-node A/B (as riccati_solve takes them) -> dX (B, N+1, 36),
+    dU (B, N, nu)."""
+    lead = K.shape[:2]
+    A, B = _bcast_nodes(A, lead), _bcast_nodes(B, lead)
+    dx = dx0
+    dXs, dUs = [], []
+    for n in range(lead[1]):
+        du = kff[:, n] + (K[:, n] @ dx[..., None])[..., 0]
+        dXs.append(dx)
+        dUs.append(du)
+        dx = (A[:, n] @ dx[..., None] + B[:, n] @ du[..., None])[..., 0] + defects[:, n]
+    dXs.append(dx)
+    return torch.stack(dXs, 1), torch.stack(dUs, 1)
+
+
+RICCATI_MODES = ("pallas", "sequential", "associative")
+
+
+def resolve_routes(opt: MPCOptConfig):
+    """(linearize route, Riccati route) from the config's
+    ``linearize_mode`` and ``riccati_mode`` as the JAX package's solver
+    resolves them (its ``solver/sqp.py:305-314``): the linearization
+    "dynjac" (kernel 2 for a batch, 7 at B = 1) or "jacfwd"
+    (linearize.gn_blocks_jacfwd, or gn_blocks_fast under
+    ``solve(use_fast_linearize=True)``; "jacrev" is the same route), the
+    sweep "pallas" (the CUDA Riccati kernels), "sequential" or
+    "associative". "auto" resolves to "dynjac" / "pallas" on every device:
+    the JAX package's "auto" picks by whether Pallas is available, which the
+    port does not depend on (CPU tensors take the kernels' plain twins).
+    The time-optimal mode linearizes by jacfwd and sweeps by riccati_solve
+    whatever the modes say, as the JAX package does, but for
+    "associative", whose scan takes constant A/B only: that pair raises
+    ValueError."""
     lin, ric = opt.linearize_mode, opt.riccati_mode
-    if ric in ("sequential", "associative"):
-        raise NotImplementedError(
-            f"riccati_mode={ric!r} is not ported yet (ROADMAP Queue 1 item 9, "
-            "'Options, last'); the port has 'auto' and 'pallas'")
-    if ric not in ("auto", "pallas"):
+    if ric not in ("auto",) + RICCATI_MODES:
         raise ValueError(f"unknown riccati_mode {ric!r}")
     if lin not in ("auto", "dynjac", "jacfwd", "jacrev"):
         raise ValueError(f"unknown linearize_mode {lin!r}")
-    return "jacfwd" if lin in ("jacfwd", "jacrev") else "dynjac"
+    if ric == "associative" and opt.enable_time_opt:
+        raise ValueError("riccati_mode='associative' takes constant A/B only; the "
+                         "time-optimal mode's dynamics are per node")
+    return ("jacfwd" if lin in ("jacfwd", "jacrev") else "dynjac",
+            "pallas" if ric == "auto" else ric)
 
 
 def _select(mask, new, old):
@@ -125,18 +218,24 @@ class TrajOptSolver:
     lingram = staticmethod(lingram)
     dynjac = staticmethod(dynjac)
     gn_blocks_jacfwd = staticmethod(gn_blocks_jacfwd)
+    gn_blocks_fast = staticmethod(gn_blocks_fast)
     riccati_rollout = staticmethod(riccati_rollout)
     riccati_sweep_terminal = staticmethod(riccati_sweep_terminal)
     riccati_sweep = staticmethod(riccati_sweep)
     forward_rollout = staticmethod(forward_rollout)
+    riccati_sweep_structured = staticmethod(riccati_sweep_structured)
+    forward_delta_structured = staticmethod(forward_delta_structured)
+    parallel_riccati = staticmethod(parallel_riccati)
+    riccati_solve = staticmethod(riccati_solve)
+    forward_delta = staticmethod(forward_delta)
     dyncore = staticmethod(dyncore)
 
     def __init__(self, spec: RobotSpec, opt: MPCOptConfig, cost: MPCCostConfig,
                  device=None):
-        if opt.enable_time_opt:
-            raise NotImplementedError("the per-node time-optimal mode is not "
-                                      "ported yet")
-        self.linearize_mode = resolve_linearize(opt)
+        self.linearize_mode, self.riccati_mode = resolve_routes(opt)
+        # the time-optimal mode appends each node's duration as a 31st input
+        self.time_opt = bool(opt.enable_time_opt)
+        self.nu = NU + int(self.time_opt)
         self.device = resolve_device(device)
         self.spec = spec.to(self.device)
         self.opt = opt
@@ -144,6 +243,8 @@ class TrajOptSolver:
         self.N = opt.n_nodes
         self.dt_nodes = opt.get_dt_nodes()
         self.weights = make_weights(opt, cost, self.spec, device=self.device)
+        self.A, self.B = dynamics_matrices(self.dt_nodes, device=self.device)
+        self._jac_const = make_const_blocks(self.weights)
         f32 = dict(dtype=torch.float32, device=self.device)
         # qp_tol normalization (cone per-foot gravity share, torque limit,
         # 10 cm patch) and the AL shift caps, as in the JAX solver
@@ -160,7 +261,7 @@ class TrajOptSolver:
     def _defects(self, X, U, p: OCPParams):
         return dynamics_step(X[:, :-1], U, p.dt) - X[:, 1:]
 
-    def gn_step(self, X, U, p: OCPParams):
+    def gn_step(self, X, U, p: OCPParams, use_fast_linearize: bool = False):
         """The raw alpha=1 GN step (dX1, dU1) and the defects at (X, U)."""
         defects = self._defects(X, U, p)
         dx0 = p.x0 - X[:, 0]
@@ -169,27 +270,51 @@ class TrajOptSolver:
         lm, reg_e = float(self.opt.lm_reg), float(self.cost.reg_eps_e)
         term = (X[:, -1], p.peak[:, :, -1], p.base_ref_e, p.joint_ref,
                 p.step_height)
-        if self.linearize_mode == "jacfwd":
+        if self.time_opt:
             blocks = self.gn_blocks_jacfwd(spec, w, X, U, p, include_torque=inc)
             P_N, p_N = terminal_gram(spec, w, reg_e, *term)
-            gains = self.riccati_sweep(h, lm, *blocks, P_N, p_N, defects)
-            dX1, dU1 = self.forward_rollout(h, gains, defects, dx0)
+            A, B = dynamics_jacobians(X[:, :-1], U)
+            K, kff = self.riccati_solve(A, B, *blocks, P_N, p_N, defects, lm)
+            dX1, dU1 = self.forward_delta(A, B, K, kff, defects, dx0)
             return dX1, dU1, defects
-        if X.shape[0] == 1:
+        if self.linearize_mode == "jacfwd":
+            if use_fast_linearize:
+                blocks = self.gn_blocks_fast(spec, w, X, U, p, *self._jac_const,
+                                             include_torque=inc)
+            else:
+                blocks = self.gn_blocks_jacfwd(spec, w, X, U, p, include_torque=inc)
+            if self.riccati_mode == "pallas":
+                P_N, p_N = terminal_gram(spec, w, reg_e, *term)
+                gains = self.riccati_sweep(h, lm, *blocks, P_N, p_N, defects)
+                dX1, dU1 = self.forward_rollout(h, gains, defects, dx0)
+                return dX1, dU1, defects
+        elif X.shape[0] == 1:
             blocks = lingram_structured(spec, w, X, U, p, include_torque=inc,
                                         dynjac_fn=self.dynjac)
         else:
             blocks = self.lingram(spec, w, X, U, p, include_torque=inc)
-        if self.N <= FUSED_ROLLOUT_MAX_N:
-            dX1, dU1 = self.riccati_rollout(spec, w, h, lm, reg_e, *blocks,
-                                            defects, dx0, *term)
+        if self.riccati_mode == "pallas":
+            if self.N <= FUSED_ROLLOUT_MAX_N:
+                dX1, dU1 = self.riccati_rollout(spec, w, h, lm, reg_e, *blocks,
+                                                defects, dx0, *term)
+            else:
+                gains = self.riccati_sweep_terminal(spec, w, h, lm, reg_e, *blocks,
+                                                    defects, *term)
+                dX1, dU1 = self.forward_rollout(h, gains, defects, dx0)
+            return dX1, dU1, defects
+        P_N, p_N = terminal_gram(spec, w, reg_e, *term)
+        if self.riccati_mode == "sequential":
+            K, kff = self.riccati_sweep_structured(h, *blocks, P_N, p_N, defects, lm)
+            dX1, dU1 = self.forward_delta_structured(h, K, kff, defects, dx0)
         else:
-            gains = self.riccati_sweep_terminal(spec, w, h, lm, reg_e, *blocks,
-                                                defects, *term)
-            dX1, dU1 = self.forward_rollout(h, gains, defects, dx0)
+            K, kff = self.parallel_riccati(self.A, self.B, *blocks, P_N, p_N, defects, lm)
+            dX1, dU1 = self.forward_delta(self.A, self.B, K, kff, defects, dx0)
         return dX1, dU1, defects
 
     def _cost_dual(self, X, U, p: OCPParams):
+        """(merit cost, r_eq, g) of each trajectory from one kernel-1 pass
+        over [a, f]; the time-optimal mode's dt rows join the cost in torch
+        (ocp.problem.stage_residual reads the 31st input)."""
         return cost_dual(self.spec, self.weights, X, U, p, core_fn=self.dyncore)
 
     def _ineq_update_from_g(self, g, params: OCPParams, lam_ineq):
@@ -208,19 +333,30 @@ class TrajOptSolver:
         viol = (torch.clamp_min(g, 0.0) / self._ineq_scales).amax((1, 2))
         return lam_new, viol
 
-    def _qp_pass(self, X, U, lam, params: OCPParams, alphas, merit_rho):
+    def _qp_pass(self, X, U, lam, params: OCPParams, alphas, merit_rho,
+                 use_fast_linearize: bool = False):
         """One inner AL pass for every problem: GN step with the current
         shifts, merit of every alpha and the dual inputs from one shared
-        evaluation, deterministic tie-break toward the largest alpha."""
-        dX1, dU1, defects = self.gn_step(X, U, params.replace(lam_ineq=lam))
+        evaluation, deterministic tie-break toward the largest alpha. The
+        merit's defect term is (1 - alpha) |d| where the dynamics are
+        linear; the time-optimal mode's bilinear dynamics read each
+        candidate's true defects, and its cost takes the current shifts (the
+        JAX package's ``_merit_select``)."""
+        p_lam = params.replace(lam_ineq=lam)
+        dX1, dU1, defects = self.gn_step(X, U, p_lam, use_fast_linearize)
         nA, B = alphas.shape[0], X.shape[0]
         a4 = alphas[:, None, None, None]
         Xc = (X[None] + a4 * dX1[None]).reshape((nA * B,) + X.shape[1:])
         Uc = (U[None] + a4 * dU1[None]).reshape((nA * B,) + U.shape[1:])
-        pc = params.map(lambda t: t.repeat((nA,) + (1,) * (t.dim() - 1)))
+        pc = (p_lam if self.time_opt else params).map(
+            lambda t: t.repeat((nA,) + (1,) * (t.dim() - 1)))
         cost_c, r_eq_c, g_c = self._cost_dual(Xc, Uc, pc)
-        merits = (cost_c.reshape(nA, B) + merit_rho * (1.0 - alphas)[:, None]
-                  * defects.abs().sum((1, 2))[None])
+        if self.time_opt:
+            d_c = self._defects(Xc, Uc, pc).abs().sum((1, 2)).reshape(nA, B)
+            merits = cost_c.reshape(nA, B) + merit_rho * d_c
+        else:
+            merits = (cost_c.reshape(nA, B) + merit_rho * (1.0 - alphas)[:, None]
+                      * defects.abs().sum((1, 2))[None])
         m_min = merits.min(0).values
         tol = 4e-6 * m_min.abs()
         cand = torch.where(merits <= m_min + tol, alphas[:, None],
@@ -235,10 +371,13 @@ class TrajOptSolver:
 
     # ---------------- public API ----------------
     def solve(self, X, U, params: OCPParams, n_iter: int,
-              merit_rho: float = 1.0e2) -> Solution:
+              merit_rho: float = 1.0e2, use_fast_linearize: bool = False) -> Solution:
         """Up to n_iter SQP iterations from the warm start (X, U, params),
         each wrapping up to max_qp_iter augmented-Lagrangian passes over the
-        inequality hinges; n_iter <= 1 uses the steady-state alpha set."""
+        inequality hinges; n_iter <= 1 uses the steady-state alpha set.
+        ``use_fast_linearize`` forms the blocks of the "jacfwd" route by
+        linearize.gn_blocks_fast (the JAX package's linearize_stages_fast);
+        the other routes and the time-optimal mode ignore it, as there."""
         alphas = torch.tensor(
             self.opt.ls_alphas_steady if n_iter <= 1 else self.opt.ls_alphas,
             dtype=X.dtype, device=X.device)
@@ -266,7 +405,7 @@ class TrajOptSolver:
                 if not bool(run_in.any()):
                     break
                 new = self._qp_pass(inner["X"], inner["U"], inner["lam"],
-                                    params, alphas, merit_rho)
+                                    params, alphas, merit_rho, use_fast_linearize)
                 inner = {k: _select(run_in, new[k], inner[k]) for k in keys}
                 j = j + run_in.long()
             st = {k: _select(run, inner[k], st[k]) for k in keys}
@@ -288,7 +427,8 @@ class TrajOptSolver:
     # ---------------- warm starts ----------------
     def cold_start(self, params: OCPParams):
         """Stationary guess: hold x0, gravity-balancing forces on the
-        active feet -> X (B, N+1, 36), U (B, N, 30)."""
+        active feet, and in the time-optimal mode the nominal durations ->
+        X (B, N+1, 36), U (B, N, nu)."""
         B, N = params.x0.shape[0], self.N
         X = params.x0[:, None].expand(B, N + 1, params.x0.shape[1]).clone()
         cnt = params.cnt[:, :, :-1]                              # (B, 4, N)
@@ -296,11 +436,14 @@ class TrajOptSolver:
         fz = GRAVITY * self.spec.mass.sum() / n_active
         f = torch.zeros(B, N, 4, 3, dtype=X.dtype, device=X.device)
         f[..., 2] = cnt.transpose(1, 2) * fz[..., None]
-        a0 = torch.zeros(B, N, 18, dtype=X.dtype, device=X.device)
-        return X, torch.cat([a0, f.reshape(B, N, 12)], dim=2)
+        cols = [torch.zeros(B, N, 18, dtype=X.dtype, device=X.device), f.reshape(B, N, 12)]
+        if self.time_opt:
+            cols.append(torch.full((B, N, 1), self.dt_nodes, dtype=X.dtype, device=X.device))
+        return X, torch.cat(cols, dim=2)
 
     def shift_warmstart(self, X, U, shift: int):
-        """Shift by ``shift`` nodes, repeating the tail."""
+        """Shift by ``shift`` nodes, repeating the tail (every input column,
+        the time-optimal mode's durations included)."""
         idx_x = torch.clamp(torch.arange(self.N + 1, device=X.device) + shift, 0, self.N)
         idx_u = torch.clamp(torch.arange(self.N, device=X.device) + shift, 0, self.N - 1)
         return X[:, idx_x], U[:, idx_u]

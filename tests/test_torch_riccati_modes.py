@@ -27,6 +27,8 @@ from iterative_learning_nmpc_tpu_torch.ops import dynjac as dj
 from iterative_learning_nmpc_tpu_torch.ops import lingram as lg
 from iterative_learning_nmpc_tpu_torch.ops import riccati as ric
 from iterative_learning_nmpc_tpu_torch.solver import linearize as lin
+from iterative_learning_nmpc_tpu_torch.solver import parallel_riccati as pr
+from iterative_learning_nmpc_tpu_torch.solver import sqp
 from iterative_learning_nmpc_tpu_torch.solver.sqp import TrajOptSolver
 
 from test_torch_kernels_plain import riccati_case  # noqa: F401 (fixture)
@@ -158,12 +160,20 @@ def _spied(opt, cost, spec, log):
         riccati_sweep_terminal = spy("riccati_sweep_terminal", ric.riccati_sweep_terminal)
         riccati_sweep = spy("riccati_sweep", ric.riccati_sweep)
         forward_rollout = spy("forward_rollout", ric.forward_rollout)
+        riccati_sweep_structured = spy("riccati_sweep_structured",
+                                       ric.riccati_sweep_structured)
+        forward_delta_structured = spy("forward_delta_structured",
+                                       ric.forward_delta_structured)
+        parallel_riccati = spy("parallel_riccati", pr.parallel_riccati)
+        riccati_solve = spy("riccati_solve", sqp.riccati_solve)
+        forward_delta = spy("forward_delta", sqp.forward_delta)
 
     return Spied(spec, opt, cost, device="cpu")
 
 
 ROUTES = {
-    # (n_nodes, batch, linearize_mode, riccati_mode) -> kernels in order
+    # (n_nodes, batch, linearize_mode, riccati_mode[, enable_time_opt]) ->
+    # the step's kernels and sweeps in order
     "auto_n6_batch": ((6, 2, "auto", "auto"), ["lingram", "riccati_rollout"]),
     "auto_n89_single": ((89, 1, "auto", "auto"),
                         ["dynjac", "riccati_sweep_terminal", "forward_rollout"]),
@@ -171,31 +181,52 @@ ROUTES = {
                       ["gn_blocks_jacfwd", "riccati_sweep", "forward_rollout"]),
     "pallas_jacrev_single": ((6, 1, "jacrev", "pallas"),
                              ["gn_blocks_jacfwd", "riccati_sweep", "forward_rollout"]),
+    "sequential_batch": ((6, 2, "dynjac", "sequential"),
+                         ["lingram", "riccati_sweep_structured", "forward_delta_structured"]),
+    "sequential_single": ((6, 1, "auto", "sequential"),
+                          ["dynjac", "riccati_sweep_structured", "forward_delta_structured"]),
+    "sequential_jacfwd": ((6, 2, "jacfwd", "sequential"),
+                          ["gn_blocks_jacfwd", "riccati_sweep_structured",
+                           "forward_delta_structured"]),
+    "associative_batch": ((6, 2, "dynjac", "associative"),
+                          ["lingram", "parallel_riccati", "forward_delta"]),
+    "associative_single": ((6, 1, "dynjac", "associative"),
+                           ["dynjac", "parallel_riccati", "forward_delta"]),
+    "time_opt_pallas": ((6, 2, "auto", "pallas", True),
+                        ["gn_blocks_jacfwd", "riccati_solve", "forward_delta"]),
+    "time_opt_sequential_single": ((6, 1, "jacfwd", "sequential", True),
+                                   ["gn_blocks_jacfwd", "riccati_solve", "forward_delta"]),
 }
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_gn_step_route(route):
-    (n, B, lin_mode, ric_mode), expect = ROUTES[route]
-    base, X, U, p = F.flagship(device="cpu", n_nodes=n)
+    (n, B, lin_mode, ric_mode, *time_opt), expect = ROUTES[route]
+    base, X, U, p = F.flagship(device="cpu", n_nodes=n, time_opt=bool(time_opt))
     opt = dataclasses.replace(base.opt, linearize_mode=lin_mode, riccati_mode=ric_mode)
     log = []
     solver = _spied(opt, base.cost, base.spec, log)
     Xb, Ub, pb = F.perturbed_batch(X, U, p, B, seed=3)
     dX, dU, _ = solver.gn_step(Xb, Ub, pb)
     assert log == expect
-    assert dX.shape == (B, n + 1, 36) and dU.shape == (B, n, 30)
+    assert dX.shape == (B, n + 1, 36) and dU.shape == (B, n, solver.nu)
     assert bool(torch.isfinite(dU).all())
 
 
 @pytest.mark.parametrize("change", [dict(riccati_mode="sequential"),
                                     dict(riccati_mode="associative"),
                                     dict(enable_time_opt=True)])
-def test_unported_modes_raise(change):
+def test_modes_construct_and_step(change):
+    """The modes the port once refused build and take one finite step."""
     base, _, _, _ = F.flagship(device="cpu", n_nodes=6)
-    with pytest.raises(NotImplementedError):
-        TrajOptSolver(base.spec, dataclasses.replace(base.opt, **change), base.cost,
-                      device="cpu")
+    solver = TrajOptSolver(base.spec, dataclasses.replace(base.opt, **change), base.cost,
+                           device="cpu")
+    _, X, U, p = F.flagship(device="cpu", n_nodes=6)
+    X, U = solver.cold_start(p)
+    assert U.shape[-1] == solver.nu == (31 if change.get("enable_time_opt") else 30)
+    s = solver.solve(X, U, p, 1)
+    assert s.U.shape == U.shape
+    assert bool(torch.isfinite(s.U).all() and torch.isfinite(s.stats.cost).all())
 
 
 def test_n100_rti_step_matches_jax_golden():
