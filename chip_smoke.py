@@ -240,6 +240,15 @@ rows, and the on-device SafeDAgger loop). Phases, one line each:
      Jacobians at 4,096 random states of Go2 and of Solo12 against
      models/tree_dynamics in float64 on the card. Kernels 1, 2, 6 and 7
      must launch.
+ 30. kernel 7's batched full-Jacobian route and the kernel-1 evaluators,
+     the counters set to 0 before one drive of each and read after (kernel 7
+     once at M = 256 x 25, kernel 1 once): lingram_stages_dynjac at B=256,
+     N=25 on tests/test_dynjac_kernel.py's kind of inputs against the same
+     route on kernel 7's plain twin and against kernel 2's blocks, per
+     block within 3e-4 * max(1, |block|); total_cost_dyncore over 8 alphas
+     x 256 problems against the plain twin's merit (1e-4 relative) and
+     equal to cost_dual's, dual_g_dyncore equal to cost_dual's rows; each
+     timed by CUDA events.
 
 It then prints one JSON line with the kernels' results (each with its
 bound: the larger of its operations over the card's fp32 rate, bf16
@@ -3347,6 +3356,150 @@ def solver_options_phase(dev, card, kernels) -> dict:
     return launches
 
 
+# phase 30: kernel 7's batched full-Jacobian route (linearize_stages_dynjac /
+# lingram_stages_dynjac) at B x N = 256 x 25 = 6,400 node evaluations on
+# tests/test_dynjac_kernel.py's kind of inputs (random contacts, restrict 1,
+# nonzero multipliers), and the kernel-1 evaluators over alphas x problems.
+# The route's blocks against the same route on kernel 7's plain twin and
+# against kernel 2 on the same inputs: the lingram gate's per-block bound,
+# 3e-4 * max(1, |block|); the merit against the plain twin's at 1e-4
+# relative (kernel 1 is within 1e-5 of its output scale, phase 5), and
+# equal to cost_dual's on the flattened batch
+ROUTE_B, ROUTE_ALPHAS, ROUTE_GATE, ROUTE_COST_RTOL = 256, 8, 3.0e-4, 1.0e-4
+
+
+def route_inputs(solver, B, dev, seed):
+    """(X (B, N+1, 36), U (B, N, 30), params): tests/test_dynjac_kernel.py's
+    draws for B problems: standing states with noise 0.05, inputs 0.3 with
+    30 N on every foot's z, random contacts, footholds and multipliers,
+    3 cm patches, restrict 1."""
+    import numpy as np
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch.solver.sqp import make_params
+
+    N = solver.N
+    rng = np.random.RandomState(seed)
+    q0 = solver.spec.q_home.cpu().numpy().astype(np.float32)
+    X = np.tile(np.concatenate([q0, np.zeros(18, np.float32)])[None, None], (B, N + 1, 1))
+    X += 0.05 * rng.randn(B, N + 1, 36).astype(np.float32)
+    U = 0.3 * rng.randn(B, N, 30).astype(np.float32)
+    U[:, :, 20::3] += 30.0
+    ps = [make_params(solver, X[b, 0], (rng.rand(4, N + 1) > 0.4).astype(np.float32),
+                      cnt_loc=0.3 * rng.randn(4, N + 1, 3).astype(np.float32),
+                      patch_radius=np.full((4, N + 1), 0.05, np.float32), restrict=1.0,
+                      lam_eq=0.1 * rng.randn(N, 18).astype(np.float32),
+                      lam_ineq=0.5 * np.abs(rng.randn(N, 36)).astype(np.float32))
+          for b in range(B)]
+    return torch.as_tensor(X, device=dev), torch.as_tensor(U, device=dev), stack_params(ps)
+
+
+def block_errs(a, b):
+    """Per block (Q, R, M, qx, ru): (name, max |a - b|, 3e-4 * max(1, |b|))."""
+    return [(n, float((x - y).abs().max()), ROUTE_GATE * max(1.0, float(y.abs().max())))
+            for n, x, y in zip(("Q", "R", "M", "qx", "ru"), a, b)]
+
+
+def route_phase(dev, card, kernels):
+    """Phase 30: the route and the evaluators driven once with the counters
+    at 0 (one kernel-7 launch at M = B * N, one kernel-1 launch over every
+    candidate), then held to their twins and timed. Returns (launches, the
+    numbers kept in the kernels line)."""
+    import numpy as np
+    import torch
+
+    from iterative_learning_nmpc_tpu_torch.mpc.config import get_quadruped_config
+    from iterative_learning_nmpc_tpu_torch.ops.dyncore import dyncore_plain
+    from iterative_learning_nmpc_tpu_torch.ops.dynjac import dynjac, dynjac_plain
+    from iterative_learning_nmpc_tpu_torch.ops.lingram import lingram
+    from iterative_learning_nmpc_tpu_torch.robots.go2 import go2_spec
+    from iterative_learning_nmpc_tpu_torch.solver.linearize import (
+        cost_dual, dual_g_dyncore, lingram_stages_dynjac, total_cost_dyncore)
+    from iterative_learning_nmpc_tpu_torch.solver.sqp import TrajOptSolver
+    from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms, graph_time_ms
+
+    t_phase = time.perf_counter()
+    _, opt, cost = get_quadruped_config("trot", "go2")
+    solver = TrajOptSolver(go2_spec(device=dev), opt, cost, device=dev)
+    spec, w, N = solver.spec, solver.weights, solver.N
+    inc = solver.opt.torque_limit_in_qp
+    X, U, p = route_inputs(solver, ROUTE_B, dev, SEED)
+    rng = torch.Generator(device=dev).manual_seed(SEED)
+    alphas = torch.linspace(1.0, 1.0 / ROUTE_ALPHAS, ROUTE_ALPHAS, device=dev)
+    dX = 0.02 * torch.randn(X.shape, generator=rng, device=dev)
+    dU = 0.5 * torch.randn(U.shape, generator=rng, device=dev)
+    Xa = X[None] + alphas[:, None, None, None] * dX[None]
+    Ua = U[None] + alphas[:, None, None, None] * dU[None]
+    pa = p.map(lambda t: t[None].expand((ROUTE_ALPHAS,) + t.shape))
+    route = lambda fn=dynjac: lingram_stages_dynjac(spec, w, X, U, p, *solver._jac_const,
+                                                    include_torque=inc, dynjac_fn=fn)
+    costs = lambda fn=None: total_cost_dyncore(spec, w, Xa, Ua, pa,
+                                               **({} if fn is None else dict(core_fn=fn)))
+
+    route()                                                     # warm-up
+    costs()
+    torch.cuda.synchronize()
+    zero(kernels)
+    t0 = time.perf_counter()
+    blocks_k = route()
+    cost_k = costs()
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    launches = read(kernels)
+
+    blocks_p = route(dynjac_plain)
+    blocks_2 = lingram(spec, w, X, U, p, inc)
+    e_plain, e_k2 = block_errs(blocks_k, blocks_p), block_errs(blocks_k, blocks_2)
+    cost_p = costs(dyncore_plain)
+    e_cost = float(((cost_k - cost_p).abs() / cost_p.abs()).max())
+    flat = lambda t: t.reshape((-1,) + t.shape[2:])
+    cd_cost, cd_req, cd_g = cost_dual(spec, w, flat(Xa), flat(Ua), pa.map(flat))
+    same_cost = bool(torch.equal(cost_k, cd_cost.reshape(cost_k.shape)))
+    r_eq, g = dual_g_dyncore(spec, w, Xa, Ua, pa)
+    same_dual = bool(torch.equal(r_eq, cd_req.reshape(r_eq.shape))
+                     and torch.equal(g, cd_g.reshape(g.shape)))
+    finite = all(bool(torch.isfinite(t).all()) for t in (*blocks_k, cost_k))
+
+    M = ROUTE_B * N
+    x_n, u_n = X[:, :-1].reshape(M, 36), U.reshape(M, 30)
+    cnt = p.cnt[:, :, :N].transpose(1, 2).reshape(M, 4)
+    dj_args = (spec, x_n.contiguous(), u_n[:, :18].contiguous(),
+               (cnt[..., None] * u_n[:, 18:].reshape(M, 4, 3)).reshape(M, 12).contiguous())
+    times = dict(route_ms=cuda_time_ms(route, 10),
+                 route_plain_ms=cuda_time_ms(lambda: route(dynjac_plain), 3),
+                 lingram_ms=cuda_time_ms(lambda: lingram(spec, w, X, U, p, inc), 10),
+                 dynjac_ms=cuda_time_ms(lambda: dynjac(*dj_args), 20),
+                 dynjac_device_ms=graph_time_ms(lambda: dynjac(*dj_args)),
+                 dynjac_plain_ms=cuda_time_ms(lambda: dynjac_plain(*dj_args), 3),
+                 cost_ms=cuda_time_ms(costs, 20),
+                 cost_plain_ms=cuda_time_ms(lambda: costs(dyncore_plain), 3))
+    fmt = lambda errs: ", ".join(f"{n} {e:.2e}/{b:.2e}" for n, e, b in errs)
+    wall = time.perf_counter() - t_phase
+    print(f"[route] lingram_stages_dynjac B={ROUTE_B} N={N} (kernel 7 at M={M}), err/bound "
+          f"(3e-4 * max(1, |block|)): against the route on the plain twin {fmt(e_plain)}; "
+          f"against kernel 2's blocks {fmt(e_k2)}; {times['route_ms']:.4f} ms (plain twin "
+          f"{times['route_plain_ms']:.4f}, kernel 2 {times['lingram_ms']:.4f}); kernel 7 alone "
+          f"{times['dynjac_ms']:.4f} ms eager, {times['dynjac_device_ms']:.4f} device, plain "
+          f"{times['dynjac_plain_ms']:.4f} ({card})", flush=True)
+    print(f"[evaluators] total_cost_dyncore over {ROUTE_ALPHAS} x {ROUTE_B} (kernel 1 at M="
+          f"{ROUTE_ALPHAS * ROUTE_B * (N + 1)}): rel to the plain twin {e_cost:.2e} (<= "
+          f"{ROUTE_COST_RTOL}), equal to cost_dual's {same_cost}, dual_g_dyncore equal to its "
+          f"rows {same_dual}; {times['cost_ms']:.4f} ms (plain {times['cost_plain_ms']:.4f}) "
+          f"({card})", flush=True)
+    print(f"[30] launches {launches} (route and merit driven once in {drive_s:.3f} s); phase "
+          f"30 wall {wall:.1f} s", flush=True)
+    if not finite:
+        fail("30: non-finite blocks or costs")
+    if any(e > b for _, e, b in e_plain + e_k2):
+        fail(f"30: the route's blocks outside the bound: {fmt(e_plain)}; {fmt(e_k2)}")
+    if not (e_cost <= ROUTE_COST_RTOL and same_cost and same_dual):
+        fail(f"30: merit rel {e_cost:.2e}, equal to cost_dual {same_cost}, dual {same_dual}")
+    if launches["dynjac"] != 1 or launches["dyncore"] != 1:
+        fail(f"30: kernel 7 and kernel 1 must launch once each: {launches}")
+    return launches, dict(times, route_err_plain=e_plain, route_err_lingram=e_k2,
+                          cost_rel_err=e_cost, M_dynjac=M, wall_s=wall)
+
+
 def main() -> None:
     import torch
 
@@ -3765,6 +3918,9 @@ def main() -> None:
     by_phase.update(learning_pipeline_phase(dev, card, kernels))
     # ---- 29. the solver's last options ----
     by_phase["29"] = solver_options_phase(dev, card, kernels)
+    # ---- 30. kernel 7's batched full-Jacobian route, the kernel-1 evaluators ----
+    by_phase["30"], route_info = route_phase(dev, card, kernels)
+    next(r for r in results if r["name"] == "dynjac")["phase_30"] = route_info
     for r in results:
         r["launches_by_phase"] = {ph: c[r["name"]] for ph, c in by_phase.items()}
     next(r for r in results if r["name"] == "policy_pd")["launches_by_phase"]["25"] = ws

@@ -1,4 +1,5 @@
-"""Gait machines and footstep planners (numpy host API).
+"""Gait machines and footstep planners (numpy host API; the cyclic
+windows also on a device, ``GaitPlanner.window_device``).
 
 Counterpart of ``iterative_learning_nmpc_tpu/gait/planner.py``; the same
 rules in float64 numpy, so both packages plan identical contact schedules
@@ -16,7 +17,9 @@ from math import ceil
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
+from ..device import resolve_device
 from ..mpc.config import GaitConfig
 
 
@@ -66,6 +69,19 @@ class GaitPlanner:
         mk = np.where(self.switch_cnt == 1, 1, 0)
         bk = np.where(self.switch_cnt == -1, 1, 0)
         return self._window(mk, i_node, n_nodes), self._window(bk, i_node, n_nodes)
+
+    def window_device(self, i_node, n_nodes: int, device=None):
+        """(contacts, peaks) (n_foot, n_nodes) int32 tensors on the device of
+        ``i_node``, a start node given as a tensor (an int goes to ``device``,
+        by default the CUDA card): the windows of get_contacts / get_peaks,
+        with no copy back to the host."""
+        if not isinstance(i_node, torch.Tensor):
+            i_node = torch.as_tensor(i_node, device=resolve_device(device))
+        dev = i_node.device
+        idx = torch.remainder(i_node + torch.arange(n_nodes, device=dev),
+                              self.nodes_per_cycle)
+        return (torch.as_tensor(self.gait_sequence, device=dev)[:, idx],
+                torch.as_tensor(self.peak_swing, device=dev)[:, idx])
 
 
 class ContactPlanner(GaitPlanner):

@@ -21,7 +21,8 @@ by shape: kernel 8 (``ops.policy_pd``, the fused MLP + PD kernel on a CUDA
 device, its plain twin on the CPU) for the widths it takes
 (``ops.policy_pd.kernel_takes``), and the fp32 addmm chain
 (``ops.policy_pd.policy_pd_dense``) for every other net, as the JAX
-package serves any net.
+package serves any net. ``make_policy_apply`` wraps one as the JAX
+package's apply function, over any leading dims.
 """
 from __future__ import annotations
 
@@ -310,3 +311,20 @@ class ServedPolicy:
     def serve(self, x, qj, vj, kp: float, kd: float):
         """``__call__`` on inputs (B, 47) already normalised."""
         return self._serve(self.layers, kp, kd, x, qj, vj)
+
+
+def make_policy_apply(path: str, v_des=None, device=None):
+    """A (..., 47) -> (..., 12) tensor function: the payload's PD targets
+    with its normalisation folded in (state columns 1: and goal; the phase
+    column passes through), served by ``ServedPolicy`` on ``device`` (by
+    default the CUDA card), so through kernel 8 where its route is
+    "kernel". Bundles as ``read_payload``."""
+    from ..solver.warmstart import policy_targets
+
+    targets = policy_targets(ServedPolicy(*load_policy(path, v_des=v_des, device=device),
+                                          device=device))
+
+    def apply_fn(x: torch.Tensor) -> torch.Tensor:
+        return targets(x.reshape(-1, x.shape[-1])).reshape(x.shape[:-1] + (12,))
+
+    return apply_fn

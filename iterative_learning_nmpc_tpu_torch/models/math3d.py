@@ -49,6 +49,19 @@ def _unit(i: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=like.dtype, device=like.device)[i]
 
 
+def rot_x(a: torch.Tensor) -> torch.Tensor:
+    """Rotation about x by angles a (...) -> (..., 3, 3)."""
+    return rotation_about_axis(_unit(0, a), a)
+
+
+def rot_y(a: torch.Tensor) -> torch.Tensor:
+    return rotation_about_axis(_unit(1, a), a)
+
+
+def rot_z(a: torch.Tensor) -> torch.Tensor:
+    return rotation_about_axis(_unit(2, a), a)
+
+
 def ypr_to_matrix(ypr: torch.Tensor) -> torch.Tensor:
     """[yaw, pitch, roll] (..., 3) -> R = Rz(y) Ry(p) Rx(r) (..., 3, 3)."""
     rz = rotation_about_axis(_unit(2, ypr), ypr[..., 0])

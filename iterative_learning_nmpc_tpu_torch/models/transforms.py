@@ -55,3 +55,10 @@ def convert_to_mujoco(q: torch.Tensor, v: torch.Tensor):
     """Chart (q, v) -> (qpos, qvel)."""
     return ypr_state_to_quat_state(q), vel_to_mujoco(q, v)
 
+
+def v_global_to_local(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Chart velocity (..., 18) with the base linear velocity rotated into
+    the base frame, R(ypr)^T v[:3]; the rest as it is."""
+    R_WB = ypr_to_matrix(q[..., 3:6])
+    v_loc = (R_WB.transpose(-1, -2) @ v[..., :3, None])[..., 0]
+    return torch.cat([v_loc, v[..., 3:]], dim=-1)

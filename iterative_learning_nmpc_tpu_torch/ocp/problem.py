@@ -368,6 +368,16 @@ def terminal_residual(spec: RobotSpec, w: Weights, x, peak_k, base_ref_e,
     return torch.cat([rb, rj, r_swing], dim=-1)
 
 
+def stage_residual_from_params(spec: RobotSpec, w: Weights, x, u, p: OCPParams,
+                               k: int) -> torch.Tensor:
+    """stage_residual of node k of each problem of p: x (B, 36), u (B, 30)
+    -> (B, 142), the node's parameters and multipliers read from p."""
+    return stage_residual(
+        spec, w, x, u, p.cnt[:, :, k], p.peak[:, :, k], p.plane_point[:, :, k],
+        p.cnt_loc[:, :, k], p.patch_radius[:, :, k], p.restrict, p.base_ref,
+        p.joint_ref, p.step_height, lam_k=p.lam_eq[:, k], lam_ineq_k=p.lam_ineq[:, k])
+
+
 def equality_residuals(spec: RobotSpec, w: Weights, x, u, cnt_k, plane_k,
                        core=None) -> torch.Tensor:
     """Bare (multiplier-free) weighted equality rows (..., 18): the AL

@@ -67,6 +67,26 @@ class RobotSpec:
         spec."""
         return self.mass.shape[:-1]
 
+    @property
+    def n_foot(self) -> int:
+        return len(self.foot_body)
+
+    @property
+    def ancestor_mask(self) -> np.ndarray:
+        """(nv, nv) bool: [i, j] iff DOF j is on the path from the world to
+        body i (inclusive)."""
+        mask = np.zeros((self.nv, self.nv), dtype=bool)
+        for i in range(self.nv):
+            k = i
+            while k >= 0:
+                mask[i, k] = True
+                k = self.parent[k]
+        return mask
+
+    def total_mass(self) -> torch.Tensor:
+        """The robot's mass, () or per environment (B,) for a payload spec."""
+        return self.mass.sum(-1)
+
     def batched_fields(self) -> Tuple[str, ...]:
         """The fields that carry the batch: ``PAYLOAD_FIELDS`` for a
         payload-randomized spec, none for a nominal one."""

@@ -3,7 +3,10 @@
 Counterparts in ``iterative_learning_nmpc_tpu/solver/linearize.py``:
 
 - ``cost_dual`` <- ``cost_dual_dyncore``: merit cost, bare equality rows and
-  raw inequality values from ONE batched FK/RNEA core (``ops.dyncore``),
+  raw inequality values from ONE batched FK/RNEA core (``ops.dyncore``);
+  ``cost_dual_dyncore`` takes any leading dims, and ``total_cost_dyncore``,
+  ``dual_g_dyncore``, ``eq_residuals_dyncore``, ``ineq_g_dyncore`` are its
+  parts (the same names),
 - ``lingram_structured`` <- ``lingram_structured``: the Gauss-Newton blocks
   (Q, R, M, qx, ru) condensed row group by row group from ONE dynamics +
   Jacobian evaluation per node (``ops.dynjac``); the single-problem route
@@ -16,7 +19,10 @@ Counterparts in ``iterative_learning_nmpc_tpu/solver/linearize.py``:
   ``assemble_stage_jacobian``, ``linearize_stages_fast`` <- the same names:
   the stage Jacobian assembled from the residual's structure, with reverse-
   mode derivatives of the RNEA rows and the foot kinematics only
-  (``solve(use_fast_linearize=True)``); ``gn_blocks_fast`` is its Gram.
+  (``solve(use_fast_linearize=True)``); ``gn_blocks_fast`` is its Gram,
+- ``linearize_stages_dynjac``, ``lingram_stages_dynjac`` <- the same names:
+  the stage Jacobian assembled the same way from one ``ops.dynjac`` call
+  over every (problem, node), and its Gram; no solver route takes them.
 """
 from __future__ import annotations
 
@@ -108,6 +114,41 @@ def cost_dual(spec: RobotSpec, w: Weights, Xb: torch.Tensor, Ub: torch.Tensor,
     return cost, r_eq, g
 
 
+def cost_dual_dyncore(spec: RobotSpec, w: Weights, Xb: torch.Tensor, Ub: torch.Tensor,
+                      pb: OCPParams, core_fn=dyncore):
+    """``cost_dual`` over any leading dims (line-search alphas x problems):
+    Xb (..., N+1, 36), Ub (..., N, 30), pb with the same leading dims ->
+    (cost (...), r_eq (..., N, 18), g_ineq (..., N, 36)), every evaluation
+    in one ``core_fn`` call."""
+    lead = Xb.shape[:-2]
+    L = Xb[..., 0, 0].numel()
+    nd = len(lead)
+    flat = lambda t: t.reshape((L,) + t.shape[nd:])
+    cost, r_eq, g = cost_dual(spec, w, flat(Xb), flat(Ub), pb.map(flat), core_fn=core_fn)
+    return (cost.reshape(lead), r_eq.reshape(lead + r_eq.shape[1:]),
+            g.reshape(lead + g.shape[1:]))
+
+
+def total_cost_dyncore(spec: RobotSpec, w: Weights, Xb, Ub, pb: OCPParams, core_fn=dyncore):
+    """The merit cost (...) of trajectories with any leading dims."""
+    return cost_dual_dyncore(spec, w, Xb, Ub, pb, core_fn)[0]
+
+
+def dual_g_dyncore(spec: RobotSpec, w: Weights, Xb, Ub, pb: OCPParams, core_fn=dyncore):
+    """Both AL dual-update inputs (r_eq (..., N, 18), g_ineq (..., N, 36))."""
+    return cost_dual_dyncore(spec, w, Xb, Ub, pb, core_fn)[1:]
+
+
+def eq_residuals_dyncore(spec: RobotSpec, w: Weights, Xb, Ub, pb: OCPParams, core_fn=dyncore):
+    """The bare equality rows (..., N, 18)."""
+    return cost_dual_dyncore(spec, w, Xb, Ub, pb, core_fn)[1]
+
+
+def ineq_g_dyncore(spec: RobotSpec, w: Weights, Xb, Ub, pb: OCPParams, core_fn=dyncore):
+    """The raw inequality values (..., N, 36), physical units."""
+    return cost_dual_dyncore(spec, w, Xb, Ub, pb, core_fn)[2]
+
+
 # d g / d f of the five pyramid-cone rows per foot (ocp.problem.cone_values):
 # the xy part, and the z part whose rows 1-4 scale with mu
 _CONE_XY = ((0.0, 0.0), (1.0, 0.0), (-1.0, 0.0), (0.0, 1.0), (0.0, -1.0))
@@ -118,6 +159,23 @@ _CONE_MU_MASK = (0.0, 1.0, 1.0, 1.0, 1.0)
 def _gram(A: torch.Tensor) -> torch.Tensor:
     """A^T A per leading index: (L, rows, c) -> (L, c, c)."""
     return torch.bmm(A.transpose(1, 2), A)
+
+
+def _dynjac_core(spec: RobotSpec, x, a, f_eff, dynjac_fn):
+    """One ``dynjac_fn`` call over flat nodes x (L, 36), a (L, 18),
+    f_eff (L, 4, 3) -> p_feet, v_feet (L, 4, 3), tau (L, 18), Jp, Jvf
+    (L, 4, 3, 36), Jt_x (L, 18, 36), Jt_a (L, 18, 18) and Jt_f (L, 18, 12)
+    in f_eff, the last by duality: d tau / d f_i = -(d v_foot_i / d v)^T."""
+    L = x.shape[0]
+    prim, J = dynjac_fn(spec, x.contiguous(), a.contiguous(),
+                        f_eff.reshape(L, 12).contiguous())
+    p_feet = prim[:, :12].reshape(L, N_FOOT, 3)
+    v_feet = prim[:, 12:24].reshape(L, N_FOOT, 3)
+    Jp = J[:, :12, :NX].reshape(L, N_FOOT, 3, NX)
+    Jvf = J[:, 12:24, :NX].reshape(L, N_FOOT, 3, NX)
+    Jt_f = -Jvf[..., 18:NX].transpose(2, 3)               # (L, 4, 18, 3)
+    Jt_f = Jt_f.permute(0, 2, 1, 3).reshape(L, 18, 12)
+    return p_feet, v_feet, prim[:, 24:], Jp, Jvf, J[:, 24:, :NX], J[:, 24:, NX:], Jt_f
 
 
 def lingram_structured(spec: RobotSpec, w: Weights, Xb: torch.Tensor,
@@ -150,17 +208,8 @@ def lingram_structured(spec: RobotSpec, w: Weights, Xb: torch.Tensor,
     cnt = pb.cnt[:, :, :N].transpose(1, 2).reshape(BN, N_FOOT)
     f = U_nodes[:, 18:].reshape(BN, N_FOOT, 3)
     f_eff = cnt[..., None] * f
-    prim, J = dynjac_fn(spec, X_nodes.contiguous(), A_nodes.contiguous(),
-                        f_eff.reshape(BN, 12).contiguous())
-    p_feet = prim[:, :12].reshape(BN, N_FOOT, 3)
-    v_feet = prim[:, 12:24].reshape(BN, N_FOOT, 3)
-    tau = prim[:, 24:]                                    # (BN, 18)
-    Jp = J[:, :12, :NX].reshape(BN, N_FOOT, 3, NX)
-    Jvf = J[:, 12:24, :NX].reshape(BN, N_FOOT, 3, NX)
-    Jt_x = J[:, 24:, :NX]                                 # (BN, 18, 36)
-    Jt_a = J[:, 24:, NX:]                                 # (BN, 18, 18)
-    Jt_f = -Jvf[..., 18:NX].transpose(2, 3)               # (BN, 4, 18, 3)
-    Jt_f = Jt_f.permute(0, 2, 1, 3).reshape(BN, 18, 12)
+    p_feet, v_feet, tau, Jp, Jvf, Jt_x, Jt_a, Jt_f = _dynjac_core(
+        spec, X_nodes, A_nodes, f_eff, dynjac_fn)
 
     # ---- per-problem parameters broadcast to flat nodes ----
     rep = lambda x: x[:, None].expand((B, N) + x.shape[1:]).reshape((BN,) + x.shape[1:])
@@ -450,5 +499,44 @@ def gn_blocks_fast(spec: RobotSpec, w: Weights, Xb: torch.Tensor, Ub: torch.Tens
     B, N = Ub.shape[0], Ub.shape[1]
     r, Jx, Ju = linearize_stages_fast(spec, w, Xb, Ub, pb, Jx_const, Ju_const,
                                       include_torque=include_torque)
+    fl = lambda t: t.reshape((B * N,) + t.shape[2:])
+    return _blocks_of(B, N, fl(r), fl(Jx), fl(Ju))
+
+
+def linearize_stages_dynjac(spec: RobotSpec, w: Weights, Xb: torch.Tensor, Ub: torch.Tensor,
+                            pb: OCPParams, Jx_const, Ju_const, include_torque: bool = True,
+                            dynjac_fn=dynjac):
+    """(r, Jx, Ju) of every (problem, node), (B, N, rows, ...), from one
+    ``dynjac_fn`` call over all B * N nodes: the residual by
+    ocp.problem.stage_residual on the call's values, the Jacobian by
+    assemble_stage_jacobian on its derivatives; the fixed-dt input layout
+    only."""
+    B, N = Ub.shape[0], Ub.shape[1]
+    BN = B * N
+    flat = {k: t.reshape((BN,) + t.shape[2:]) for k, t in node_view(pb, N).items()}
+    x, u = Xb[:, :-1].reshape(BN, NX), Ub.reshape(BN, NU)
+    f_eff = flat["cnt_k"][..., None] * u[:, 18:].reshape(BN, N_FOOT, 3)
+    p_feet, v_feet, tau, Jp, Jvf, Jt_x, Jt_a, Jt_f = _dynjac_core(
+        spec, x, u[:, :18], f_eff, dynjac_fn)
+    r = stage_residual(spec, w, x, u, include_torque=include_torque,
+                       core=(p_feet, v_feet, tau), **flat)
+    Jx, Ju = assemble_stage_jacobian(
+        spec, w, x, u, flat["cnt_k"], flat["peak_k"], flat["plane_k"], flat["cnt_loc_k"],
+        flat["patch_k"], flat["restrict"], p_feet, tau, Jp, Jvf, Jt_x, Jt_a, Jt_f,
+        Jx_const, Ju_const, include_torque, lam_ineq_k=flat["lam_ineq_k"])
+    rs = lambda t: t.reshape((B, N) + t.shape[1:])
+    return rs(r), rs(Jx), rs(Ju)
+
+
+def lingram_stages_dynjac(spec: RobotSpec, w: Weights, Xb: torch.Tensor, Ub: torch.Tensor,
+                          pb: OCPParams, Jx_const, Ju_const, include_torque: bool = True,
+                          dynjac_fn=dynjac):
+    """(Q, R, M, qx, ru) (B, N, ...) as slices of G = J^T J on
+    J = [Jx | Ju | r] from linearize_stages_dynjac, one flat (B * N)-batched
+    product. The solver forms its blocks by lingram_structured (B = 1) or
+    ops.lingram, as the JAX package's does."""
+    B, N = Ub.shape[0], Ub.shape[1]
+    r, Jx, Ju = linearize_stages_dynjac(spec, w, Xb, Ub, pb, Jx_const, Ju_const,
+                                        include_torque=include_torque, dynjac_fn=dynjac_fn)
     fl = lambda t: t.reshape((B * N,) + t.shape[2:])
     return _blocks_of(B, N, fl(r), fl(Jx), fl(Ju))

@@ -105,6 +105,26 @@ class Solution(NamedTuple):
     lam_ineq: torch.Tensor   # (B, N, NC_INEQ) annealed AL hinge shifts
     r_eq: torch.Tensor       # (B, N, 18) bare equality rows at the solution
 
+    @property
+    def q(self):
+        """Configurations (B, N+1, 18)."""
+        return self.X[..., :18]
+
+    @property
+    def v(self):
+        """Velocities (B, N+1, 18)."""
+        return self.X[..., 18:]
+
+    @property
+    def a(self):
+        """Accelerations (B, N, 18)."""
+        return self.U[..., :18]
+
+    @property
+    def f(self):
+        """Foot forces (B, N, 4, 3)."""
+        return self.U[..., 18:NU].reshape(self.U.shape[:-1] + (4, 3))
+
     def dt_sol(self, dt_nominal):
         """The node durations: the optimized 31st input (B, N) in the
         time-optimal mode, else ``dt_nominal``."""
@@ -317,6 +337,18 @@ class TrajOptSolver:
         (ocp.problem.stage_residual reads the 31st input)."""
         return cost_dual(self.spec, self.weights, X, U, p, core_fn=self.dyncore)
 
+    def _total_cost(self, X, U, p: OCPParams):
+        """The merit cost (B,) of each trajectory (kernel 1)."""
+        return self._cost_dual(X, U, p)[0]
+
+    def _dual_g(self, X, U, p: OCPParams):
+        """(r_eq (B, N, 18), g_ineq (B, N, NC_INEQ)) from one kernel-1 pass."""
+        return self._cost_dual(X, U, p)[1:]
+
+    def _ineq_g(self, X, U, p: OCPParams):
+        """Raw inequality values (B, N, NC_INEQ), physical units."""
+        return self._dual_g(X, U, p)[1]
+
     def _ineq_update_from_g(self, g, params: OCPParams, lam_ineq):
         """Damped, clipped AL shift update + scale-normalized violation:
         s <- mask * clip(s + g_+ + 0.25 g_-, 0, s_max)."""
@@ -370,14 +402,17 @@ class TrajOptSolver:
                     step_norm=alpha * dU1.abs().amax((1, 2)), alpha=alpha)
 
     # ---------------- public API ----------------
-    def solve(self, X, U, params: OCPParams, n_iter: int,
+    def solve(self, X, U, params: OCPParams, n_iter: int | None = None,
               merit_rho: float = 1.0e2, use_fast_linearize: bool = False) -> Solution:
-        """Up to n_iter SQP iterations from the warm start (X, U, params),
-        each wrapping up to max_qp_iter augmented-Lagrangian passes over the
-        inequality hinges; n_iter <= 1 uses the steady-state alpha set.
+        """Up to n_iter (by default ``opt.max_iter``) SQP iterations from the
+        warm start (X, U, params), each wrapping up to max_qp_iter
+        augmented-Lagrangian passes over the inequality hinges; n_iter <= 1
+        uses the steady-state alpha set.
         ``use_fast_linearize`` forms the blocks of the "jacfwd" route by
         linearize.gn_blocks_fast (the JAX package's linearize_stages_fast);
         the other routes and the time-optimal mode ignore it, as there."""
+        if n_iter is None:
+            n_iter = int(self.opt.max_iter)
         alphas = torch.tensor(
             self.opt.ls_alphas_steady if n_iter <= 1 else self.opt.ls_alphas,
             dtype=X.dtype, device=X.device)
@@ -421,8 +456,30 @@ class TrajOptSolver:
         """Equality AL update lam <- clip(lam + r_eq(X, U), -lam_max, lam_max);
         pass ``r_eq=sol.r_eq`` to reuse the rows the solve computed."""
         if r_eq is None:
-            r_eq = self._cost_dual(X, U, params)[1]
+            r_eq = self._dual_g(X, U, params)[0]
         return torch.clamp(params.lam_eq + r_eq, -lam_max, lam_max)
+
+    def update_ineq_multipliers(self, X, U, params: OCPParams, lam_ineq):
+        """The damped, clipped AL shift update at (X, U) and the
+        scale-normalized violation (B,) of the qp_tol exit:
+        s <- mask * clip(s + g_+ + 0.25 g_-, 0, s_max), cone rows reset
+        where a foot is in swing, patch rows where unrestricted."""
+        return self._ineq_update_from_g(self._ineq_g(X, U, params), params, lam_ineq)
+
+    # ---------------- the reference API's setters ----------------
+    # They write the config that ``solve`` reads at each call, so they take
+    # effect at the next call (the JAX package's affect only the jit
+    # specializations traced after them; the port has no trace).
+    def set_max_iter(self, n: int) -> None:
+        """SQP iterations of a ``solve`` called without ``n_iter`` (and of
+        the controller's RTI replans, which read ``opt.max_iter``)."""
+        self.opt.max_iter = int(n)
+
+    def set_nlp_tol(self, tol: float) -> None:
+        self.opt.nlp_tol = float(tol)
+
+    def set_qp_tol(self, tol: float) -> None:
+        self.opt.qp_tol = float(tol)
 
     # ---------------- warm starts ----------------
     def cold_start(self, params: OCPParams):
