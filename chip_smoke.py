@@ -106,10 +106,14 @@ rows, and the on-device SafeDAgger loop). Phases, one line each:
  18. the card's ceilings: fma_chain against its twin, then its fp32 FMA rate
      at full size (counters as above), and the HBM rate of x + 1.0 over 1 GiB,
  19. one Riccati node's factorize-and-solve under three thread mappings (a
-     block running the production node stage of csrc/riccati.cuh, a warp,
-     a thread per node) on the reference probe's blocks at B=1024, N=25,
-     counters as above: each within 1e-5 of the twin and of the block
-     mapping, timed there and at B=256,
+     block running the production node stage of csrc/riccati.cuh,
+     persistent warps eliminating pivot by pivot, a thread per node) on the
+     reference probe's blocks at B=1024, N=25, counters as above: each
+     within 1e-5 of the twin and of the block mapping, timed there and at
+     B=256; the block and warp mappings also at B=4096 (the warp within
+     1e-5 of both there too), and the warp mapping held to the JAX
+     prototype's own node solve (tests/data/node_solve_sublane_golden.npz)
+     within 1e-5 of each output's scale,
  20. behaviour cloning at full width (learning/train.py): the valid rows of
      phase 12's datagen (goal = each env's v_des) into a Database,
      BehavioralCloning with the TrainConfig defaults (47 -> 512x3 -> 12,
@@ -301,12 +305,13 @@ DYNCORE_MS = (52, 2 * 256 * 26, 2 * 512 * 26, 2 * 256 * 101)
 # tensor cores (policy_pd_bf16's layers 2-4), and HBM3
 PEAK_FLOPS, PEAK_TC_FLOPS, PEAK_BYTES = 67.0e12, 989.0e12, 3.35e12
 # the probes (phases 17-19): the bf16 policy at the fp32 policy's batches,
-# the node solve at the reference probe's batch and at the sweep's
+# the node solve at the reference probe's batch, at the sweep's and at four
+# times the probe's (102,400 nodes: past one pass of the persistent warps)
 BF16_ULP = 2.0 ** -8
 # phase 17's seeded nets beside the shipped one: uneven hidden widths (the
 # factory pads them to 144, 112, 272) and the bf16 kernel's widest, 3 x 1024
 BF16_WIDTHS = ((132, 100, 260), (1024, 1024, 1024))
-NODE_B, NODE_N, NODE_B_SWEEP, NODE_REL = 1024, 25, 256, 1e-5
+NODE_B, NODE_N, NODE_B_SWEEP, NODE_B_BIG, NODE_REL = 1024, 25, 256, 4096, 1e-5
 # the training side (phases 20-21): BC epochs on the datagen's rows, the
 # rows of the card-against-CPU epoch, and the SafeDAgger loop's run
 BC_EPOCHS, BC_CMP_ROWS, BC_CMP_SEEDS = 3, 8192, 4
@@ -1285,18 +1290,25 @@ def node_solve_phase(dev, card, kernels, record) -> None:
     """Phase 19: the node solve's three thread mappings on the reference
     probe's blocks at B=1024, N=25, counters set to 0 before the three calls:
     each against node_solve_plain and the block mapping, then timed there and
-    at B=256 (the sweep's batch)."""
+    at B=256 (the sweep's batch); the block and warp mappings at B=4096, the
+    warp's outputs against both there; the warp mapping on the JAX
+    prototype's own outputs (``_solve_node_sublane`` on 37 nodes)."""
+    import numpy as np
     import torch
 
     from iterative_learning_nmpc_tpu_torch.ops import probes
     from iterative_learning_nmpc_tpu_torch.utils.profiling import cuda_time_ms
 
-    def case(B):
+    t0 = time.perf_counter()
+
+    def case(B, mappings=("block", "warp", "thread")):
         blocks = probes.reference_node_blocks(B, NODE_N, SEED, dev)
-        laid = [probes.lay_batch_inner(t, t.dim() - 2) for t in blocks]
-        return blocks, {"block": lambda: probes.node_solve_block(*blocks),
-                        "warp": lambda: probes.node_solve_warp(*blocks),
-                        "thread": lambda: probes.node_solve_thread(*laid)}
+        laid = ([probes.lay_batch_inner(t, t.dim() - 2) for t in blocks]
+                if "thread" in mappings else None)
+        calls = {"block": lambda: probes.node_solve_block(*blocks),
+                 "warp": lambda: probes.node_solve_warp(*blocks),
+                 "thread": lambda: probes.node_solve_thread(*laid)}
+        return blocks, {m: calls[m] for m in mappings}
 
     blocks, calls = case(NODE_B)
     fns = {m: getattr(probes, f"node_solve_{m}") for m in calls}
@@ -1316,23 +1328,60 @@ def node_solve_phase(dev, card, kernels, record) -> None:
     times = {m: cuda_time_ms(c, 20) for m, c in calls.items()}
     _, calls_s = case(NODE_B_SWEEP)
     times_s = {m: cuda_time_ms(c, 20) for m, c in calls_s.items()}
+    del calls_s
+    # B=4096: the block and warp mappings, the warp against the twin and the block
+    t_big = time.perf_counter()
+    blocks_b, calls_b = case(NODE_B_BIG, ("block", "warp"))
+    outs_b = {m: c() for m, c in calls_b.items()}
+    ref_b = probes.node_solve_plain(*blocks_b)
+    rel_b = {"plain": rel(outs_b["warp"], ref_b), "block": rel(outs_b["warp"], outs_b["block"])}
+    times_b = {m: cuda_time_ms(c, 20) for m, c in calls_b.items()}
+    del blocks_b, calls_b, outs_b, ref_b
+    # the JAX prototype's own node solve on 37 nodes
+    g = load_golden("node_solve_sublane")
+    g_out = probes.node_solve_warp(*(torch.as_tensor(g[k], device=dev)
+                                     for k in ("Qxx", "Quu", "Qux", "qxp", "qu")))
+    rel_g = max(float(np.abs(o.cpu().numpy() - g[k]).max() / np.abs(g[k]).max())
+                for o, k in zip(g_out, ("K", "kff", "P", "p")))
+    t_big = time.perf_counter() - t_big
+    print(f"[node solve] warp at B={NODE_B_BIG} N={NODE_N}: {times_b['warp']:.4f} ms, block "
+          f"{times_b['block']:.4f} ms ({times_b['block'] / times_b['warp']:.3f}x); rel to the "
+          f"twin {rel_b['plain']:.2e}, to the block mapping {rel_b['block']:.2e}; to the JAX "
+          f"prototype's _solve_node_sublane on {len(g['Qxx'])} nodes {rel_g:.2e} (<= "
+          f"{NODE_REL:.0e}) ({card})", flush=True)
     for m, out in outs.items():
         r_p, r_b = rel(out, ref), rel(out, outs["block"])
+        big = (f", B={NODE_B_BIG} {times_b[m]:.4f} ms "
+               f"({NODE_B_BIG * NODE_N / times_b[m] * 1e3:.1f} node-solves/s)"
+               if m in times_b else "")
         print(f"[node solve] {m}: B={NODE_B} N={NODE_N} {times[m]:.4f} ms "
               f"({M / times[m] * 1e3:.1f} node-solves/s, {times['block'] / times[m]:.3f}x the "
               f"block mapping), B={NODE_B_SWEEP} {times_s[m]:.4f} ms "
-              f"({NODE_B_SWEEP * NODE_N / times_s[m] * 1e3:.1f} node-solves/s); rel to the twin "
-              f"{r_p:.2e}, to the block mapping {r_b:.2e} (<= {NODE_REL:.0e}) ({card})",
+              f"({NODE_B_SWEEP * NODE_N / times_s[m] * 1e3:.1f} node-solves/s){big}; rel to the "
+              f"twin {r_p:.2e}, to the block mapping {r_b:.2e} (<= {NODE_REL:.0e}) ({card})",
               flush=True)
         err = max(float((x - y).abs().max()) for x, y in zip(out, ref))
+        ok = r_p <= NODE_REL and r_b <= NODE_REL
+        tol = f"max |d| / max |twin| per output {r_p:.2e} <= {NODE_REL:.0e} (Quu = G G^T + 3 I)"
+        extra = {"ms_by_batch": {NODE_B_SWEEP: times_s[m], NODE_B: times[m],
+                                 **({NODE_B_BIG: times_b[m]} if m in times_b else {})},
+                 "bound_ms_by_batch": {b: bound_of(probes.node_solve_flops(b * NODE_N), 0.0,
+                                                   probes.node_solve_bytes(b * NODE_N))[0]
+                                       for b in (NODE_B_SWEEP, NODE_B, NODE_B_BIG)}}
+        if m == "warp":
+            ok = ok and max(rel_b.values()) <= NODE_REL and rel_g <= NODE_REL
+            tol += (f"; B={NODE_B_BIG} {max(rel_b.values()):.2e}, the JAX prototype's output "
+                    f"{rel_g:.2e}")
+            extra.update(rel_by_batch={NODE_B_BIG: rel_b}, rel_to_sublane_golden=rel_g)
         record(f"node_solve_{m}", "iterative_learning_nmpc_tpu_torch/csrc/probes.cu",
                "scripts/proto_sublane_riccati.py:70" if m == "block"
-               else "scripts/proto_sublane_riccati.py:179", err,
-               r_p <= NODE_REL and r_b <= NODE_REL,
-               f"max |d| / max |twin| per output {r_p:.2e} <= {NODE_REL:.0e} (Quu = G G^T + 3 I)",
-               times[m], plain_ms, None, None, out, n_launch=n_launch[m], work=work)
+               else "scripts/proto_sublane_riccati.py:179", err, ok, tol,
+               times[m], plain_ms, None, None, out, n_launch=n_launch[m], work=work,
+               extra=extra)
         if n_launch[m] != 1:
             fail(f"node_solve_{m} launched {n_launch[m]} times for one call")
+    print(f"[node solve] phase 19 {time.perf_counter() - t0:.1f} s (B={NODE_B_BIG} and the "
+          f"golden {t_big:.1f} s)", flush=True)
 
 
 def bc_gate(a, b, const_cols):

@@ -12,8 +12,12 @@ the solver kernels' minimal work.
   and 6 run, one block of ``RIC_THREADS`` (192) threads a node:
   ``ric_factor`` on the factor warp; ``ric_forward``, ``ric_backward`` and
   ``ric_value_p`` on the column threads; ``ric_value_tile`` on the tile
-  threads. The warp and thread mappings are the baselines it was chosen
-  against. All three compute ``node_solve_plain``'s function.
+  threads. The warp mapping is the port of ``_kernel_sublane``'s pivot
+  order: persistent warps, lane i owning row i of [Quu | Qux | qu] in
+  registers, eliminated pivot by pivot, the next node's blocks landing in
+  shared memory by ``cp.async`` meanwhile. The thread mapping is the
+  batch-innermost baseline. All three compute ``node_solve_plain``'s
+  function.
 
 CPU tensors take the twins; CUDA tensors launch the kernels or raise.
 """
@@ -220,6 +224,9 @@ def _node_solve(name: str, launch: str, args, batch_inner: bool):
         _check(name, k, a, shape(s))
         if a.device != x.device:
             raise ValueError(f"{name}: every input must lie on Qxx's device")
+    # the warp mapping copies the blocks by 16-byte cp.async: a view that
+    # starts inside its storage is copied
+    args = [a if a.data_ptr() % 16 == 0 else a.clone() for a in args]
     outs = [torch.empty(shape(s), dtype=torch.float32, device=x.device)
             for s in ((NU, NX), (NU,), (NX, NX), (NX,))]
     if M == 0:
@@ -243,7 +250,8 @@ def node_solve_block(Qxx, Quu, Qux, qxp, qu):
 
 
 def node_solve_warp(Qxx, Quu, Qux, qxp, qu):
-    """One warp per node; same contract as node_solve_plain."""
+    """Persistent warps, a node at a time each (as many as the card holds at
+    once); same contract as node_solve_plain."""
     if Qxx.device.type == "cpu":
         return node_solve_plain(Qxx, Quu, Qux, qxp, qu)
     out = _node_solve("node_solve_warp", "node_solve_warp_launch",

@@ -18,7 +18,9 @@ restricted (``restrict`` = 1, footsteps and patches); for policy_pd and policy_p
 policy's folded weights (and seeded nets up to 3 x 1024) and seeded normal
 inputs, kernel 8's shipped-net output held bit for bit to
 tests/data/go2_trot_policy_pd_kernel_golden.npz; for the node solves the
-random blocks of scripts/proto_sublane_riccati.py (Quu = G G^T + 3 I).
+random blocks of scripts/proto_sublane_riccati.py (Quu = G G^T + 3 I), the
+warp mapping also held to that script's own node solve
+(tests/data/node_solve_sublane_golden.npz).
 Without a card every test here skips: ~3.5 s of collection and no worker
 time, the kernel 7 and 3 x 1024 cases included.
 """
@@ -53,6 +55,7 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "go2_trot_n25_golden.npz")
 GOLDEN_N100 = os.path.join(ROOT, "tests", "data", "go2_trot_n100_golden.npz")
 ARTIFACT = os.path.join(ROOT, "assets", "policy_go2_trot_ondevice_dagger.pkl")
 GOLDEN_PD = os.path.join(ROOT, "tests", "data", "go2_trot_policy_pd_kernel_golden.npz")
+GOLDEN_SUBLANE = os.path.join(ROOT, "tests", "data", "node_solve_sublane_golden.npz")
 B = 3
 
 
@@ -953,3 +956,55 @@ def test_node_solve_kernels_match_plain(card, mapping):
         # Quu is well conditioned (eigenvalues in [3, ~14]): fp32 sums in
         # another order, 1e-5 of each output's scale
         assert float((o - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+@pytest.mark.cuda
+def test_node_solve_warp_matches_the_sublane_golden(card):
+    """The warp mapping (persistent warps eliminating pivot by pivot, the
+    order of the TPU prototype's ``_solve_node_sublane``) against that
+    function's own output on 37 nodes (fewer than the warps the card holds
+    at once, no multiple of a block's 5 warps)."""
+    dev = torch.device("cuda")
+    g = np.load(GOLDEN_SUBLANE)
+    args = [torch.as_tensor(g[k], device=dev) for k in ("Qxx", "Quu", "Qux", "qxp", "qu")]
+    n0 = probes.node_solve_warp.launches
+    out = probes.node_solve_warp(*args)
+    torch.cuda.synchronize()
+    assert probes.node_solve_warp.launches == n0 + 1
+    for name, o in zip(("K", "kff", "P", "p"), out):
+        ref = torch.as_tensor(g[name], device=dev)
+        assert o.shape == ref.shape
+        # fp32 sums in another order on Quu = G G^T + 3 I: 1e-5 of the scale
+        assert float((o - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 33, 2677])
+def test_node_solve_warp_walks_nodes_on_unaligned_views(card, M):
+    """One node, a ragged 33, and 2,677 nodes (past the 1,320 warps an H100
+    holds at once: each warp walks two or three nodes), every input a view
+    that starts 4 bytes into its storage (the wrapper copies it to a 16-byte
+    aligned tensor for the cp.async copies), against the twin."""
+    dev = torch.device("cuda")
+    args = [a[:, 0] for a in probes.reference_node_blocks(M, 1, 2, dev)]
+    views = []
+    for a in args:
+        flat = torch.empty(a.numel() + 1, device=dev)
+        views.append(flat[1:].view(a.shape).copy_(a))
+    assert all(v.data_ptr() % 16 for v in views)
+    out = probes.node_solve_warp(*views)
+    torch.cuda.synchronize()
+    ref = probes.node_solve_plain(*args)
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        assert float((o - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+@pytest.mark.cuda
+def test_node_solve_warp_kernel_has_no_local_memory(card):
+    """The warp mapping's register rows and columns stay in registers
+    (nvcc -Xptxas -v: no stack, no spills)."""
+    from iterative_learning_nmpc_tpu_torch.ops import _build
+
+    report = _build.ptxas_report(_build.CSRC / "probes.cu")
+    assert report["node_solve_warp_kernel"][1:] == (0, 0, 0), report

@@ -8,12 +8,21 @@ reference scripts, on the CPU.
   pad diagonal); inputs from that script's generator. Tolerance 1e-5 of each
   output's scale: fp32 sums in another order on a well-conditioned Quu
   (G G^T + 3 I).
+- ``node_solve_plain`` against ``_solve_node_sublane`` of
+  ``scripts/proto_sublane_riccati.py:100`` (the body of the TPU kernel
+  ``_kernel_sublane``, which ``node_solve_warp`` replaces): its output on 37
+  nodes of that script's generator, stored by
+  ``scripts/make_torch_node_solve_golden.py`` in
+  ``tests/data/node_solve_sublane_golden.npz`` (the solve takes ~25 s to
+  compile on the CPU, so this test reads the file and imports no JAX), each
+  mapping's CPU route on the same inputs. Tolerance 1e-5 of each output's
+  scale, as above.
 - The three mappings' CPU paths, the batch-innermost layout's round trip,
   ``fma_chain_plain`` against a numpy recurrence, and the port's copies of
   the hand FLOP counts against ``scripts/roofline.py``'s.
 
 xdist worker time: ~8 s on an 8-CPU Intel Xeon host (no JAX build: the node solve runs
-eagerly, op by op).
+eagerly, op by op); the sublane golden's tests under 0.1 s of it.
 """
 import importlib.util
 import os
@@ -29,6 +38,7 @@ from iterative_learning_nmpc_tpu_torch.ops import probes
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SUBLANE_GOLDEN = os.path.join(ROOT, "tests", "data", "node_solve_sublane_golden.npz")
 NX, NU, NUP = 36, 30, 32
 
 
@@ -55,6 +65,25 @@ def test_node_solve_plain_matches_jax_node_solve():
         ref = np.asarray(ref)
         assert _lanes(mine).shape == ref.shape
         assert np.abs(_lanes(mine) - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("mapping", ["plain", "block", "warp", "thread"])
+def test_node_solve_matches_the_sublane_golden(mapping):
+    g = np.load(SUBLANE_GOLDEN)
+    args = [torch.as_tensor(g[k]) for k in ("Qxx", "Quu", "Qux", "qxp", "qu")]
+    L = args[0].shape[0]
+    assert L == 37
+    fn = getattr(probes, f"node_solve_{mapping}")
+    if mapping == "thread":
+        outs = [probes.unlay_batch_inner(o, (L,))
+                for o in fn(*(probes.lay_batch_inner(a, a.dim() - 1) for a in args))]
+    else:
+        outs = fn(*args)
+    for name, mine in zip(("K", "kff", "P", "p"), outs):
+        ref = g[name]
+        assert tuple(mine.shape) == ref.shape
+        # fp32 sums in another order on Quu = G G^T + 3 I (eigenvalues in [3, ~14])
+        assert np.abs(mine.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
 def test_node_solve_mappings_take_the_twin_on_the_cpu():
