@@ -10,7 +10,9 @@ Modes:
   close_loop the host MuJoCo plant at 1 kHz with async replanning (needs
              ``mujoco``; the controller runs on ``--device``)
 
-Each mode ends with a line of the CUDA kernels' launches in the process.
+Each mode ends with a line of the CUDA kernels' launches in the process and
+one of the solver's counters (solves, AL passes, problems computed and
+advanced, host syncs).
 """
 import argparse
 import sys
@@ -23,6 +25,7 @@ from ..ops.dynjac import dynjac
 from ..ops.lingram import lingram
 from ..ops.policy_pd import policy_pd
 from ..ops.riccati import riccati_rollout
+from ..utils import profiling
 
 KERNELS = (dyncore, lingram, riccati_rollout, dynjac, policy_pd)
 
@@ -47,6 +50,8 @@ def get_spec(robot: str, urdf: str = None, device=None):
 
 def print_launches() -> None:
     print("launches: " + ", ".join(f"{k.__name__} {k.launches}" for k in KERNELS), flush=True)
+    print("counters: " + ", ".join(f"{k} {v}" for k, v in profiling.counters().items()),
+          flush=True)
 
 
 def main(argv=None):

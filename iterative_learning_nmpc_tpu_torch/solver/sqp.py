@@ -45,6 +45,10 @@ The loops keep the semantics of ``jax.vmap`` over the JAX package's
 ``while_loop``s: the outer loop stops a problem at step_norm <= nlp_tol, the
 inner AL loop at viol <= qp_tol (at most max_qp_iter passes), and a
 problem that has stopped is frozen (``torch.where``) while the others run.
+Each loop test is one device -> host read of the problems still running.
+The solve counts its passes, the problems they compute and advance, and
+those reads (``utils.profiling.counters``); while the profiler runs, its
+layers are spans (``sqp.solve``, ``sqp.pass``, ``sqp.linearize``, ...).
 """
 from __future__ import annotations
 
@@ -83,6 +87,7 @@ from ..ops.riccati import (
     terminal_gram,
 )
 from ..robots.spec import RobotSpec
+from ..utils.profiling import count, solve_record, span
 from .linearize import (cost_dual, gn_blocks_fast, gn_blocks_jacfwd, lingram_structured,
                         make_const_blocks)
 from .parallel_riccati import parallel_riccati
@@ -221,6 +226,15 @@ def resolve_routes(opt: MPCOptConfig):
             "pallas" if ric == "auto" else ric)
 
 
+def _n_active(mask) -> int:
+    """The problems still running, of an int64 0/1 mask: one device -> host
+    read, counted in ``solver.host_syncs``."""
+    with span("sqp.sync"):
+        n = int(mask.sum())
+    count("solver.host_syncs")
+    return n
+
+
 def _select(mask, new, old):
     """Per-problem select: mask (B,) against tensors with leading B."""
     return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)), new, old)
@@ -255,6 +269,8 @@ class TrajOptSolver:
         self.linearize_mode, self.riccati_mode = resolve_routes(opt)
         # the time-optimal mode appends each node's duration as a 31st input
         self.time_opt = bool(opt.enable_time_opt)
+        self.routes = dict(linearize=self.linearize_mode, riccati=self.riccati_mode,
+                           time_opt=self.time_opt)
         self.nu = NU + int(self.time_opt)
         self.device = resolve_device(device)
         self.spec = spec.to(self.device)
@@ -290,45 +306,46 @@ class TrajOptSolver:
         lm, reg_e = float(self.opt.lm_reg), float(self.cost.reg_eps_e)
         term = (X[:, -1], p.peak[:, :, -1], p.base_ref_e, p.joint_ref,
                 p.step_height)
-        if self.time_opt:
-            blocks = self.gn_blocks_jacfwd(spec, w, X, U, p, include_torque=inc)
-            P_N, p_N = terminal_gram(spec, w, reg_e, *term)
-            A, B = dynamics_jacobians(X[:, :-1], U)
-            K, kff = self.riccati_solve(A, B, *blocks, P_N, p_N, defects, lm)
-            dX1, dU1 = self.forward_delta(A, B, K, kff, defects, dx0)
-            return dX1, dU1, defects
-        if self.linearize_mode == "jacfwd":
-            if use_fast_linearize:
-                blocks = self.gn_blocks_fast(spec, w, X, U, p, *self._jac_const,
-                                             include_torque=inc)
-            else:
+        with span("sqp.linearize"):
+            if self.time_opt:
                 blocks = self.gn_blocks_jacfwd(spec, w, X, U, p, include_torque=inc)
-            if self.riccati_mode == "pallas":
+                A, B = dynamics_jacobians(X[:, :-1], U)
+            elif self.linearize_mode == "jacfwd":
+                if use_fast_linearize:
+                    blocks = self.gn_blocks_fast(spec, w, X, U, p, *self._jac_const,
+                                                 include_torque=inc)
+                else:
+                    blocks = self.gn_blocks_jacfwd(spec, w, X, U, p, include_torque=inc)
+            elif X.shape[0] == 1:
+                blocks = lingram_structured(spec, w, X, U, p, include_torque=inc,
+                                            dynjac_fn=self.dynjac)
+            else:
+                blocks = self.lingram(spec, w, X, U, p, include_torque=inc)
+        with span("sqp.riccati"):
+            if self.time_opt:
+                P_N, p_N = terminal_gram(spec, w, reg_e, *term)
+                K, kff = self.riccati_solve(A, B, *blocks, P_N, p_N, defects, lm)
+                dX1, dU1 = self.forward_delta(A, B, K, kff, defects, dx0)
+            elif self.riccati_mode == "pallas" and self.linearize_mode == "jacfwd":
                 P_N, p_N = terminal_gram(spec, w, reg_e, *term)
                 gains = self.riccati_sweep(h, lm, *blocks, P_N, p_N, defects)
                 dX1, dU1 = self.forward_rollout(h, gains, defects, dx0)
-                return dX1, dU1, defects
-        elif X.shape[0] == 1:
-            blocks = lingram_structured(spec, w, X, U, p, include_torque=inc,
-                                        dynjac_fn=self.dynjac)
-        else:
-            blocks = self.lingram(spec, w, X, U, p, include_torque=inc)
-        if self.riccati_mode == "pallas":
-            if self.N <= FUSED_ROLLOUT_MAX_N:
+            elif self.riccati_mode == "pallas" and self.N <= FUSED_ROLLOUT_MAX_N:
                 dX1, dU1 = self.riccati_rollout(spec, w, h, lm, reg_e, *blocks,
                                                 defects, dx0, *term)
-            else:
+            elif self.riccati_mode == "pallas":
                 gains = self.riccati_sweep_terminal(spec, w, h, lm, reg_e, *blocks,
                                                     defects, *term)
                 dX1, dU1 = self.forward_rollout(h, gains, defects, dx0)
-            return dX1, dU1, defects
-        P_N, p_N = terminal_gram(spec, w, reg_e, *term)
-        if self.riccati_mode == "sequential":
-            K, kff = self.riccati_sweep_structured(h, *blocks, P_N, p_N, defects, lm)
-            dX1, dU1 = self.forward_delta_structured(h, K, kff, defects, dx0)
-        else:
-            K, kff = self.parallel_riccati(self.A, self.B, *blocks, P_N, p_N, defects, lm)
-            dX1, dU1 = self.forward_delta(self.A, self.B, K, kff, defects, dx0)
+            else:
+                P_N, p_N = terminal_gram(spec, w, reg_e, *term)
+                if self.riccati_mode == "sequential":
+                    K, kff = self.riccati_sweep_structured(h, *blocks, P_N, p_N, defects, lm)
+                    dX1, dU1 = self.forward_delta_structured(h, K, kff, defects, dx0)
+                else:
+                    K, kff = self.parallel_riccati(self.A, self.B, *blocks, P_N, p_N,
+                                                   defects, lm)
+                    dX1, dU1 = self.forward_delta(self.A, self.B, K, kff, defects, dx0)
         return dX1, dU1, defects
 
     def _cost_dual(self, X, U, p: OCPParams):
@@ -377,29 +394,31 @@ class TrajOptSolver:
         p_lam = params.replace(lam_ineq=lam)
         dX1, dU1, defects = self.gn_step(X, U, p_lam, use_fast_linearize)
         nA, B = alphas.shape[0], X.shape[0]
-        a4 = alphas[:, None, None, None]
-        Xc = (X[None] + a4 * dX1[None]).reshape((nA * B,) + X.shape[1:])
-        Uc = (U[None] + a4 * dU1[None]).reshape((nA * B,) + U.shape[1:])
-        pc = (p_lam if self.time_opt else params).map(
-            lambda t: t.repeat((nA,) + (1,) * (t.dim() - 1)))
-        cost_c, r_eq_c, g_c = self._cost_dual(Xc, Uc, pc)
-        if self.time_opt:
-            d_c = self._defects(Xc, Uc, pc).abs().sum((1, 2)).reshape(nA, B)
-            merits = cost_c.reshape(nA, B) + merit_rho * d_c
-        else:
-            merits = (cost_c.reshape(nA, B) + merit_rho * (1.0 - alphas)[:, None]
-                      * defects.abs().sum((1, 2))[None])
-        m_min = merits.min(0).values
-        tol = 4e-6 * m_min.abs()
-        cand = torch.where(merits <= m_min + tol, alphas[:, None],
-                           torch.full_like(merits, -float("inf")))
-        best = cand.argmax(0)                                   # (B,)
-        flat = best * B + torch.arange(B, device=X.device)
-        alpha = alphas[best]
-        lam_new, viol = self._ineq_update_from_g(g_c[flat], params, lam)
-        return dict(X=Xc[flat], U=Uc[flat], lam=lam_new, r_eq=r_eq_c[flat],
-                    cost=merits.gather(0, best[None])[0], viol=viol,
-                    step_norm=alpha * dU1.abs().amax((1, 2)), alpha=alpha)
+        with span("sqp.merit"):
+            a4 = alphas[:, None, None, None]
+            Xc = (X[None] + a4 * dX1[None]).reshape((nA * B,) + X.shape[1:])
+            Uc = (U[None] + a4 * dU1[None]).reshape((nA * B,) + U.shape[1:])
+            pc = (p_lam if self.time_opt else params).map(
+                lambda t: t.repeat((nA,) + (1,) * (t.dim() - 1)))
+            cost_c, r_eq_c, g_c = self._cost_dual(Xc, Uc, pc)
+            if self.time_opt:
+                d_c = self._defects(Xc, Uc, pc).abs().sum((1, 2)).reshape(nA, B)
+                merits = cost_c.reshape(nA, B) + merit_rho * d_c
+            else:
+                merits = (cost_c.reshape(nA, B) + merit_rho * (1.0 - alphas)[:, None]
+                          * defects.abs().sum((1, 2))[None])
+        with span("sqp.select"):
+            m_min = merits.min(0).values
+            tol = 4e-6 * m_min.abs()
+            cand = torch.where(merits <= m_min + tol, alphas[:, None],
+                               torch.full_like(merits, -float("inf")))
+            best = cand.argmax(0)                                   # (B,)
+            flat = best * B + torch.arange(B, device=X.device)
+            alpha = alphas[best]
+            lam_new, viol = self._ineq_update_from_g(g_c[flat], params, lam)
+            return dict(X=Xc[flat], U=Uc[flat], lam=lam_new, r_eq=r_eq_c[flat],
+                        cost=merits.gather(0, best[None])[0], viol=viol,
+                        step_norm=alpha * dU1.abs().amax((1, 2)), alpha=alpha)
 
     # ---------------- public API ----------------
     def solve(self, X, U, params: OCPParams, n_iter: int | None = None,
@@ -418,35 +437,47 @@ class TrajOptSolver:
             dtype=X.dtype, device=X.device)
         B = X.shape[0]
         max_qp = max(1, int(self.opt.max_qp_iter))
-        zero = torch.zeros(B, dtype=X.dtype, device=X.device)
-        izero = torch.zeros(B, dtype=torch.int64, device=X.device)
-        keys = ("X", "U", "lam", "r_eq", "cost", "viol", "step_norm", "alpha")
-        st = dict(X=X, U=U, lam=params.lam_ineq,
-                  r_eq=torch.zeros(B, self.N, 18, dtype=X.dtype, device=X.device),
-                  cost=zero, viol=zero, step_norm=zero, alpha=zero)
-        qp_iters, n_sqp = izero, izero
-        run = torch.ones(B, dtype=torch.bool, device=X.device)
-        for i in range(n_iter):
-            if i > 0:
-                run = run & (st["step_norm"] > self.opt.nlp_tol)
-            if not bool(run.any()):
-                break
-            inner = dict(st, cost=zero, viol=zero, step_norm=zero, alpha=zero)
-            j = izero
-            run_in = run
-            for jj in range(max_qp):
-                if jj > 0:
-                    run_in = run_in & (inner["viol"] > self.opt.qp_tol)
-                if not bool(run_in.any()):
+        with solve_record(B, self.N, self.routes):
+            zero = torch.zeros(B, dtype=X.dtype, device=X.device)
+            izero = torch.zeros(B, dtype=torch.int64, device=X.device)
+            keys = ("X", "U", "lam", "r_eq", "cost", "viol", "step_norm", "alpha")
+            st = dict(X=X, U=U, lam=params.lam_ineq,
+                      r_eq=torch.zeros(B, self.N, 18, dtype=X.dtype, device=X.device),
+                      cost=zero, viol=zero, step_norm=zero, alpha=zero)
+            qp_iters, n_sqp = izero, izero
+            # the masks are int64 0/1, so that a loop test sums them with no cast
+            run = torch.ones(B, dtype=torch.int64, device=X.device)
+            for i in range(n_iter):
+                if i > 0:
+                    run = run & (st["step_norm"] > self.opt.nlp_tol)
+                if not _n_active(run):
                     break
-                new = self._qp_pass(inner["X"], inner["U"], inner["lam"],
-                                    params, alphas, merit_rho, use_fast_linearize)
-                inner = {k: _select(run_in, new[k], inner[k]) for k in keys}
-                j = j + run_in.long()
-            st = {k: _select(run, inner[k], st[k]) for k in keys}
-            qp_iters = torch.where(run, j, qp_iters)
-            n_sqp = n_sqp + run.long()
-        defect = self._defects(st["X"], st["U"], params).abs().amax((1, 2))
+                inner = dict(st, cost=zero, viol=zero, step_norm=zero, alpha=zero)
+                j = izero
+                run_in = run
+                for jj in range(max_qp):
+                    if jj > 0:
+                        run_in = run_in & (inner["viol"] > self.opt.qp_tol)
+                    n_in = _n_active(run_in)
+                    if not n_in:
+                        break
+                    with span("sqp.pass"):
+                        new = self._qp_pass(inner["X"], inner["U"], inner["lam"], params,
+                                            alphas, merit_rho, use_fast_linearize)
+                        with span("sqp.freeze"):
+                            keep = run_in.bool()
+                            inner = {k: _select(keep, new[k], inner[k]) for k in keys}
+                            j = j + run_in
+                    count("solver.al_passes")
+                    count("solver.problem_passes", B)
+                    count("solver.active_problem_passes", n_in)
+                with span("sqp.freeze"):
+                    ran = run.bool()
+                    st = {k: _select(ran, inner[k], st[k]) for k in keys}
+                    qp_iters = torch.where(ran, j, qp_iters)
+                    n_sqp = n_sqp + run
+            with span("sqp.defect"):
+                defect = self._defects(st["X"], st["U"], params).abs().amax((1, 2))
         stats = SolveStats(st["cost"], defect, st["step_norm"], st["alpha"],
                            st["viol"], qp_iters, n_sqp)
         return Solution(st["X"], st["U"], stats, st["lam"], st["r_eq"])
@@ -455,9 +486,10 @@ class TrajOptSolver:
                            r_eq=None):
         """Equality AL update lam <- clip(lam + r_eq(X, U), -lam_max, lam_max);
         pass ``r_eq=sol.r_eq`` to reuse the rows the solve computed."""
-        if r_eq is None:
-            r_eq = self._dual_g(X, U, params)[0]
-        return torch.clamp(params.lam_eq + r_eq, -lam_max, lam_max)
+        with span("sqp.update_multipliers"):
+            if r_eq is None:
+                r_eq = self._dual_g(X, U, params)[0]
+            return torch.clamp(params.lam_eq + r_eq, -lam_max, lam_max)
 
     def update_ineq_multipliers(self, X, U, params: OCPParams, lam_ineq):
         """The damped, clipped AL shift update at (X, U) and the

@@ -156,3 +156,7 @@ def test_run_mpc_traj_opt_cli():
     assert 0.0 < float(re.search(r"\|tau_ff\| max: ([\d.]+)", out).group(1)) < 40.0
     # CPU tensors take the kernels' plain twins: no kernel launched
     assert "launches: dyncore 0, lingram 0, riccati_rollout 0, dynjac 0, policy_pd 0" in out
+    # the solver's counters beside them: the solve ran its AL passes
+    n = dict((k, int(v)) for k, v in re.findall(r"(solver\.\w+) (\d+)", out))
+    assert n["solver.solves"] >= 1 and n["solver.al_passes"] >= n["solver.solves"]
+    assert n["solver.host_syncs"] > n["solver.al_passes"]
